@@ -1,0 +1,145 @@
+"""Build and bind the port's CUDA kernels (``openintel_tpu_torch/csrc``).
+
+``nvcc`` compiles every ``.cu`` source into one shared library with a plain
+C interface for ``sm_90a``; ``ctypes`` loads it. The library lands in
+``build/openintel_tpu_torch/`` beside the package, named by a hash of the
+sources and flags, so it is built once per source change and reused after
+that. The build runs at first use, never at import. Without ``nvcc`` it
+raises :class:`KernelBuildError`: there is no fallback.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`launch` raises :class:`KernelLaunchError`
+when that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "openintel_tpu_torch"
+CUDA_ROOT = "/usr/local/cuda"  # searched for bin/nvcc after PATH and CUDA_HOME
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C signatures: pointers and the stream as void*, sizes as int.
+_SIGNATURES = {
+    # q, corpus, k1, k2, s1, s2, b_pad, dim, n_super, group, sub, stream
+    "oi_i8_top2g": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, docs, is_bf16, part_vals, part_ids, out_vals, out_ids,
+    # b, n_docs, dim, k, n_split, split_len, stream
+    "oi_fused_topk": [
+        _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P
+    ],
+}
+
+
+class KernelBuildError(RuntimeError):
+    """The CUDA kernels could not be built (no nvcc, or nvcc failed)."""
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel launch returned a CUDA error."""
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: on PATH, under ``$CUDA_HOME/bin`` or under
+    ``CUDA_ROOT/bin``. Raises :class:`KernelBuildError` if none."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), CUDA_ROOT):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    raise KernelBuildError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "port's CUDA kernels need the CUDA toolkit to build"
+    )
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libopenintel_tpu_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile the kernels unless the library for these sources exists.
+    Returns (library path, seconds spent compiling; 0.0 when cached). The
+    compiler's resource report (``-Xptxas -v``) is kept beside the
+    library as ``<name>.log``."""
+    so = library_path()
+    if so.exists():
+        return so, 0.0
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())],
+        capture_output=True,
+        text=True,
+    )
+    seconds = time.perf_counter() - t0
+    so.with_suffix(".log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(
+            f"nvcc failed (rc {res.returncode}):\n{res.stderr[-4000:]}"
+        )
+    os.replace(tmp, so)
+    return so, seconds
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, once per process."""
+    so, _ = build()
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.oi_error_string.argtypes = [ctypes.c_int]
+    lib.oi_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call the C entry point ``name``; raise if it reports a CUDA error."""
+    lib = load_library()
+    rc = getattr(lib, name)(*args)
+    if rc != 0:
+        msg = lib.oi_error_string(rc).decode("ascii", "replace")
+        raise KernelLaunchError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device address as a C pointer."""
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_of(t) -> ctypes.c_void_p:
+    """PyTorch's current stream on the tensor's device, as a C pointer."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
