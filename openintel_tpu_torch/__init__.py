@@ -22,11 +22,28 @@ def default_device():
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
+_DENSE_OPS = (
+    "dense_topk_fast",  # kernel D
+    "dense_topk_fast_i4",  # kernels E1/E2
+    "dense_topk_fast_i8_grouped",  # kernel A
+    "dense_topk_pallas",  # kernel B
+    "exact_rescore",
+    "pack_corpus_i4",
+    "pad_corpus_rows",
+    "quantize_int4",
+    "quantize_int8",
+)
+
+
 def __getattr__(name):  # lazy exports (nothing heavy at import time)
     if name in ("BM25Retriever", "DenseRetriever", "HybridRetriever"):
         from openintel_tpu_torch.models import retrievers
 
         return getattr(retrievers, name)
+    if name in _DENSE_OPS:
+        from openintel_tpu_torch.ops import dense_topk
+
+        return getattr(dense_topk, name)
     raise AttributeError(
         f"module 'openintel_tpu_torch' has no attribute {name!r}"
     )

@@ -6,10 +6,12 @@ package stores it) becomes the port's device tensors:
 
 - the stored rows (f32, or bf16 read through a 16-bit view, so no
   ``ml_dtypes`` is needed);
-- the int8 candidate corpus of kernel A, quantised from the stored rows
-  (bf16-rounded values where the store is bf16, as the reference does),
-  row-major ``(N_pad, D)`` and zero-padded to a multiple of 16,384 rows,
-  once at load;
+- the candidate corpora, made once at load from the stored rows
+  (bf16-rounded values where the store is bf16, as the reference does) and
+  zero-padded to a multiple of 16,384 docs: kernel A's int8 rows
+  (:func:`int8_corpus`), kernel D's f32/bf16 rows (:func:`fast_corpus`)
+  and kernel E's nibble-packed int4 rows (:func:`int4_corpus`), all
+  row-major;
 - the rescore rows, which are the stored rows.
 
 :func:`dense_index` is the port's ``DenseIndex.from_embeddings``: it makes
@@ -25,7 +27,10 @@ import torch
 from openintel_tpu.index.schema import DenseIndex
 from openintel_tpu_torch.ops.dense_topk import (
     _TURBO_UNIT,
+    _pack_pairs,
     _round_up,
+    pad_corpus_rows,
+    quantize_int4,
     quantize_int8,
 )
 
@@ -60,6 +65,30 @@ def int8_corpus(rows: torch.Tensor, chunk: int = 1 << 16) -> torch.Tensor:
     for start in range(0, n, chunk):
         stop = min(start + chunk, n)
         out[start:stop] = quantize_int8(rows[start:stop])
+    return out
+
+
+def fast_corpus(rows: torch.Tensor) -> torch.Tensor:
+    """Kernel D's candidate corpus: the stored (N, D) f32/bf16 rows with
+    zero rows up to a multiple of 16,384, on the rows' device (the row-major
+    form of the reference's padded transposed operand)."""
+    return pad_corpus_rows(rows)
+
+
+def int4_corpus(rows: torch.Tensor, chunk: int = 1 << 16) -> torch.Tensor:
+    """Kernels E's candidate corpus: ``quantize_int4`` of the stored rows,
+    zero-padded to a multiple of 16,384 docs and packed two docs per byte,
+    (N_pad / 2, D) int8 (``pack_corpus_i4``). Quantises in chunks of an
+    even number of rows on the rows' device."""
+    n, dim = rows.shape
+    n_pad = _round_up(max(n, _TURBO_UNIT), _TURBO_UNIT)
+    chunk += chunk % 2  # whole doc pairs
+    out = torch.zeros((n_pad // 2, dim), dtype=torch.int8, device=rows.device)
+    for start in range(0, n, chunk):
+        x4 = quantize_int4(rows[start : start + chunk])
+        if x4.shape[0] % 2:  # the last doc pairs with a zero row
+            x4 = torch.cat([x4, x4.new_zeros((1, dim))])
+        out[start // 2 : (start + x4.shape[0]) // 2] = _pack_pairs(x4)
     return out
 
 

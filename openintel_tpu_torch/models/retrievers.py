@@ -3,13 +3,14 @@
 Port of :mod:`openintel_tpu.models.retrievers` (unfiltered). The retrievers
 own the index tensors on one device, encode queries and run the hybrid
 step per query sub-batch: host BM25 plan, dense candidates (kernel A plus
-exact rescore at 100k docs and more, kernel B below that), BM25 top-c,
-fusion, copy back. The JAX program scanned the sub-batches inside one
-jitted dispatch; here a Python loop runs them, since PyTorch dispatches
-eagerly.
+exact rescore at 100k docs and more, kernel B below that; opt-in, kernel D
+with ``kernel="fast"`` and kernel E2 plus exact rescore with
+``kernel="int4"``), BM25 top-c, fusion, copy back. The JAX program scanned
+the sub-batches inside one jitted dispatch; here a Python loop runs them,
+since PyTorch dispatches eagerly.
 
-Filtered search (``filter_mask``) and the ``fast``/``int4`` dense kernels
-are not ported yet (ROADMAP.md) and raise ``NotImplementedError``.
+Filtered search (``filter_mask``) is not ported yet (ROADMAP.md) and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ from openintel_tpu_torch.ops.bm25 import (
 from openintel_tpu_torch.ops.dense import dense_topk_xla
 from openintel_tpu_torch.ops.dense_topk import (
     auto_i8_group,
+    dense_topk_fast,
+    dense_topk_fast_i4,
     dense_topk_fast_i8_grouped,
     dense_topk_pallas,
     exact_rescore,
@@ -44,18 +47,8 @@ from openintel_tpu_torch.ops.fusion import (
     zblend_fuse_device,
 )
 
-KERNELS = ("xla", "pallas", "int8")
-_NOT_PORTED = {
-    "fast": "kernel D (_turbo_kernel_f32)",
-    "int4": "kernels E1/E2 (_turbo_kernel_i4, _turbo_kernel_i4_top2)",
-}
-
-
-def _not_ported(kernel: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"kernel={kernel!r} is not ported yet: {_NOT_PORTED[kernel]} is "
-        "still to port (ROADMAP.md, 'TPU kernels to port')"
-    )
+KERNELS = ("xla", "pallas", "fast", "int8", "int4")
+_QUANTIZED = ("int8", "int4")  # int8 queries, f32 rescore queries
 
 
 def _no_filters(filter_mask, filter_group) -> None:
@@ -80,7 +73,7 @@ class PreparedBatch:
     (``HybridRetriever.prepare`` -> ``run_prepared``)."""
 
     queries: torch.Tensor  # (nb, db, D) rescore/emb dtype
-    queries_i8: torch.Tensor  # (nb, db, D) int8 (a stub unless kernel="int8")
+    queries_i8: torch.Tensor  # (nb, db, D) int8 (a stub unless int8/int4)
     plan_doc_ids: torch.Tensor  # (nb, db, W) int32
     plan_weights: torch.Tensor  # (nb, db, W) f32
     n_queries: int  # true query count (before sub-batch padding)
@@ -102,8 +95,8 @@ def dense_arm_topk(
     n_docs: int,
     block_c: int = 8192,
     candidates: Optional[int] = None,  # int8 candidate count (default 2k>=32)
-    rescore_op: Optional[torch.Tensor] = None,  # (N, D) rows, kernel="int8"
-    q8: Optional[torch.Tensor] = None,  # (B, D) int8 queries, kernel="int8"
+    rescore_op: Optional[torch.Tensor] = None,  # (N, D) rows, int8/int4
+    q8: Optional[torch.Tensor] = None,  # (B, D) int8 queries, int8/int4
     plain: bool = False,  # run each kernel's plain twin (verification)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The dense-arm dispatch shared by ``DenseRetriever`` and the hybrid
@@ -115,8 +108,20 @@ def dense_arm_topk(
             group=auto_i8_group(n_docs, c), plain=plain,
         )
         return exact_rescore(rescore_op, q, cids, k)
-    if kernel in _NOT_PORTED:
-        raise _not_ported(kernel)
+    if kernel == "int4":
+        # the coarser int4 quantiser needs a wider fetch than the pool
+        # width before the rescore recovers the exact order (the
+        # reference's max(4c, 256); `candidates` is the pool width)
+        cw = min(max(4 * (candidates or k), 256), n_docs)
+        _, cids = dense_topk_fast_i4(
+            emb_op, q8, k=cw, block_c=min(block_c, 4096), n_docs=n_docs,
+            plain=plain,
+        )
+        return exact_rescore(rescore_op, q, cids, k)
+    if kernel == "fast":  # no rescore: the quantised scores go to fusion
+        return dense_topk_fast(
+            emb_op, q, k=k, block_c=block_c, n_docs=n_docs, plain=plain
+        )
     if kernel == "pallas":
         return dense_topk_pallas(emb_op, q, k=k, plain=plain)
     if kernel == "xla":
@@ -179,8 +184,9 @@ class BM25Retriever:
 
 class DenseRetriever:
     """Brute-force cosine retrieval over the dense index: kernel A plus
-    exact rescore (``int8``), kernel B (``pallas``) or the blocked exact
-    product (``xla``)."""
+    exact rescore (``int8``), kernel B (``pallas``), the blocked exact
+    product (``xla``), or, opt-in, kernel D (``fast``) or kernel E2 plus
+    exact rescore (``int4``)."""
 
     def __init__(
         self,
@@ -188,7 +194,7 @@ class DenseRetriever:
         embedder: Optional[Callable[[Sequence[str]], np.ndarray]] = None,
         *,
         use_pallas: Optional[bool] = None,
-        kernel: Optional[str] = None,  # "xla" | "pallas" | "int8" | None=auto
+        kernel: Optional[str] = None,  # one of KERNELS | None=auto
         device=None,
     ):
         self.index = index
@@ -209,21 +215,22 @@ class DenseRetriever:
                 # per 16,384-doc super, so few-super indexes serve the exact
                 # fused kernel instead
                 kernel = "pallas"
-        if kernel in _NOT_PORTED:
-            raise _not_ported(kernel)
         if kernel not in KERNELS:
             raise ValueError(f"unknown dense kernel {kernel!r}")
         self.kernel = kernel
         rows = convert.stored_rows(index, self.device)
+        # the candidate corpora are made from the STORED rows (bf16-rounded
+        # where the store is bf16); for int8/int4 the rows themselves serve
+        # the exact rescore
+        self._rescore_emb = rows if kernel in _QUANTIZED else None
         if kernel == "int8":
-            # the candidate corpus is quantised from the STORED rows
-            # (bf16-rounded where the store is bf16); the rows themselves
-            # serve the exact rescore
             self._emb_device = convert.int8_corpus(rows)
-            self._rescore_emb = rows
+        elif kernel == "int4":
+            self._emb_device = convert.int4_corpus(rows)
+        elif kernel == "fast":
+            self._emb_device = convert.fast_corpus(rows)
         else:
             self._emb_device = rows
-            self._rescore_emb = None
 
     @classmethod
     def build(
@@ -242,9 +249,9 @@ class DenseRetriever:
 
     @property
     def query_dtype(self) -> torch.dtype:
-        """int8: f32 queries into the exact rescore (rounding them to the
-        stored dtype shifts near-ties); otherwise the stored dtype."""
-        if self.kernel == "int8":
+        """int8/int4: f32 queries into the exact rescore (rounding them to
+        the stored dtype shifts near-ties); otherwise the stored dtype."""
+        if self.kernel in _QUANTIZED:
             return torch.float32
         return self._emb_device.dtype
 
@@ -267,7 +274,11 @@ class DenseRetriever:
             k,
             n_docs=self.index.n_docs,
             rescore_op=self._rescore_emb,
-            q8=quantize_int8(q32).to(self.device) if self.kernel == "int8" else None,
+            q8=(
+                quantize_int8(q32).to(self.device)
+                if self.kernel in _QUANTIZED
+                else None
+            ),
         )
         return SearchResult(ids=ids.cpu().numpy(), scores=vals.cpu().numpy())
 
@@ -303,7 +314,7 @@ class HybridRetriever:
         fusion: str = "zblend",  # "zblend" | "rrf"
         blend_alpha: float = BLEND_ALPHA,
         use_pallas: Optional[bool] = None,
-        kernel: Optional[str] = None,  # "xla" | "pallas" | "int8" | None=auto
+        kernel: Optional[str] = None,  # one of KERNELS | None=auto
         device_batch: int = 256,
         device=None,
     ):
@@ -365,6 +376,7 @@ class HybridRetriever:
     def _dense_block_c(self, db: int) -> int:
         # the reference's step width (8192 at production batch, 4096
         # below): the int8 fold's tie rules make it part of the result
+        # (kernels D and E only validate it)
         return 8192 if db >= 128 else 4096
 
     def search(
@@ -441,7 +453,7 @@ class HybridRetriever:
                 [q, np.zeros((pad, q.shape[1]), np.float32)], axis=0
             )
         q32 = torch.from_numpy(q.reshape(nb, db, q.shape[1]))
-        if self.dense.kernel == "int8":
+        if self.dense.kernel in _QUANTIZED:
             qbs8 = quantize_int8(q32).to(dev)
         else:
             qbs8 = torch.zeros((nb, db, 1), dtype=torch.int8, device=dev)

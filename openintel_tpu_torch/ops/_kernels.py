@@ -1,11 +1,12 @@
 """Build and bind the port's CUDA kernels (``openintel_tpu_torch/csrc``).
 
-``nvcc`` compiles every ``.cu`` source into one shared library with a plain
-C interface for ``sm_90a``; ``ctypes`` loads it. The library lands in
+``nvcc`` compiles each ``.cu`` source for ``sm_90a`` (one process per
+source, all started together) and links the objects into one shared
+library with a plain C interface; ``ctypes`` loads it. The library lands in
 ``build/openintel_tpu_torch/`` beside the package, named by a hash of the
-sources and flags, so it is built once per source change and reused after
-that. The build runs at first use, never at import. Without ``nvcc`` it
-raises :class:`KernelBuildError`: there is no fallback.
+sources, headers and flags, so it is built once per source change and
+reused after that. The build runs at first use, never at import. Without
+``nvcc`` it raises :class:`KernelBuildError`: there is no fallback.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`launch` raises :class:`KernelLaunchError`
@@ -27,10 +28,9 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "openintel_tpu_torch"
 CUDA_ROOT = "/usr/local/cuda"  # searched for bin/nvcc after PATH and CUDA_HOME
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -44,6 +44,10 @@ _SIGNATURES = {
     "oi_fused_topk": [
         _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P
     ],
+    # q, corpus, out, is_bf16, b_pad, dim, n_super, stream
+    "oi_turbo_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # q, packed corpus, out, slots, b_pad, dim, n_super, stream
+    "oi_turbo_i4": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -57,6 +61,10 @@ class KernelLaunchError(RuntimeError):
 
 def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def find_nvcc() -> str:
@@ -76,7 +84,7 @@ def find_nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libopenintel_tpu_torch_{h.hexdigest()[:16]}.so"
@@ -92,20 +100,35 @@ def build() -> tuple[Path, float]:
         return so, 0.0
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources()]
     t0 = time.perf_counter()
-    res = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())],
-        capture_output=True,
-        text=True,
-    )
-    seconds = time.perf_counter() - t0
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc failed (rc {res.returncode}):\n{res.stderr[-4000:]}"
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        for src, obj in zip(sources(), objs)
+    ]
+    logs = [f"== {src.name}\n{p.communicate()[0]}" for src, p in zip(sources(), procs)]
+    failed = [src.name for src, p in zip(sources(), procs) if p.returncode]
+    tmp = so.with_name(f"{tag}.tmp")
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        logs.append(f"== link\n{link.stdout}")
+        if link.returncode:
+            failed.append("link")
+    seconds = time.perf_counter() - t0
+    log = "".join(logs)
+    so.with_suffix(".log").write_text(log)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        tmp.unlink(missing_ok=True)
+        raise KernelBuildError(f"nvcc failed on {failed}:\n{log[-4000:]}")
     os.replace(tmp, so)
     return so, seconds
 

@@ -8,23 +8,42 @@ Counterparts of :mod:`openintel_tpu.ops.pallas.dense_topk`:
 - kernel B, ``csrc/fused_topk.cu`` (replaces ``_kernel`` of
   ``dense_topk_pallas``): the exact fused cosine top-k of
   :func:`dense_topk_pallas`, the dense arm of smaller corpora;
-- :func:`exact_rescore`, :func:`quantize_int8`, :func:`auto_i8_group` and
-  the int8 key constants, as torch ops.
+- kernel D, ``csrc/turbo_f32.cu`` (replaces ``_turbo_kernel_f32``): the
+  f32/bf16 candidate cells of :func:`dense_topk_fast` (``kernel="fast"``);
+- kernels E1/E2, ``csrc/turbo_i4.cu`` (replace ``_turbo_kernel_i4`` and
+  ``_turbo_kernel_i4_top2``): the int4 candidate cells of
+  :func:`dense_topk_fast_i4` (``kernel="int4"`` runs E2);
+- :func:`exact_rescore`, :func:`quantize_int8`, :func:`quantize_int4`,
+  :func:`auto_i8_group` and the key constants, as torch ops.
 
-Each kernel has a wrapper (:func:`i8_top2g_cells`, :func:`fused_topk`) and a
-plain twin of the same function (``*_plain``). A wrapper given CPU tensors
-runs the twin; given CUDA tensors it launches the kernel or raises. Each
-wrapper counts its launches in its ``launches`` attribute.
+Each kernel has a wrapper (:func:`i8_top2g_cells`, :func:`fused_topk`,
+:func:`fast_cells`, :func:`i4_cells`) and a plain twin of the same function
+(``*_plain``). A wrapper given CPU tensors runs the twin; given CUDA
+tensors it launches the kernel or raises. Each wrapper counts its launches
+in its ``launches`` attribute.
 
-Layout: the int8 candidate corpus is row-major ``(N_pad, D)``, zero-padded
-to a multiple of 16,384 rows once at load (the JAX package streams the
-transposed ``(D, N_pad)`` copy its TPU kernel wants). The candidate cells
-are integer-exact, so the port's candidate ids equal the reference's bit
-for bit.
+Layout: the candidate corpora are row-major, zero-padded to a multiple of
+16,384 docs once at load (the JAX package streams the transposed
+``(D, N_pad)`` copies its TPU kernels want): ``(N_pad, D)`` int8 for kernel
+A, ``(N_pad, D)`` f32/bf16 rows for kernel D, and ``(N_pad / 2, D)`` bytes
+for kernels E, byte row r holding docs 2r (low nibble) and 2r + 1 (high
+nibble). The int8/int4 cells are integer-exact, so the port's candidates
+equal the reference's bit for bit. Kernel D's keys hold the f32 bits of
+each dot, so they are bit-exact only where the sum is exact in any order
+(dyadic operands); elsewhere a cell may move by one score quantum (2**-16
+for s + 2 in [1, 2), 2**-15 in [2, 4)).
+
+The decodes of kernels D and E run an exact top-k, ties to the lower
+column, where the reference runs ``approx_max_k``. On a TPU the port can
+only find more candidates. On the CPU ``approx_max_k`` is exact and keeps
+the lower column too, except when it selects every column: then it sorts
+without a tie rule, and equal keys come out in an order the port does not
+reproduce (the values and the set of ids still agree).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from openintel_tpu_torch.ops import _kernels
@@ -37,9 +56,17 @@ _I8_FLAG128 = (_I8_BIAS + (1 << 23)) * 128  # bias + the reference's float flag,
 _I8_SCALE = 127.0 * 127.0  # int dot -> cosine
 _SUPER = 128  # sub-blocks (of 128 docs) per super
 _TURBO_UNIT = _SUPER * 128  # docs per super (16,384)
-_I8_QUERY_TILE = 32  # queries per kernel-A block; batches pad to it
+_I8_QUERY_TILE = 32  # queries per kernel-A/D/E block; batches pad to it
 _FUSED_MAX_K = 1024  # the reference kernel's k <= block_c bound
 _SMEM_LIMIT = 232_448  # dynamic shared memory one H100 block may use
+_POS_BITS = 7  # kernel D: sub-block position within a super
+_POS_MASK = (1 << _POS_BITS) - 1  # 127
+_SHIFT = 2.0  # kernel D: score -> strictly positive float, bits monotonic
+_SUPER_COLS = _TURBO_UNIT  # docs per super (the reference's name)
+_I4_SCALE_DEFAULT = 32.0  # int4 corpus: clip at |x| = 8 / 32 = 0.25
+_I4_SUPER_B = _SUPER // 2  # byte sub-tiles (of 128 byte rows) per super
+_I4_DIM_LIMIT = 8_000  # D below it keeps dot * 128 + _I8_FLAG128 in (0, 2**31)
+_INT32_MIN = -(2**31)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -53,17 +80,58 @@ def quantize_int8(emb: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(127.0 * x), -127, 127).to(torch.int8)
 
 
-def pad_corpus_i8(corpus: torch.Tensor) -> torch.Tensor:
-    """Zero-pad an (N, D) int8 corpus to a multiple of 16,384 rows (at
-    least one super). Done once at index load: the hot path must never
-    copy the corpus."""
+def quantize_int4(emb: torch.Tensor, scale: float = _I4_SCALE_DEFAULT) -> torch.Tensor:
+    """clip(round(scale * x), -8, 7) for unit-norm embeddings (round half
+    to even, as ``np.rint``), as int8 values."""
+    return torch.clamp(torch.round(scale * emb.float()), -8, 7).to(torch.int8)
+
+
+def pad_corpus_rows(corpus: torch.Tensor) -> torch.Tensor:
+    """Zero-pad an (N, D) corpus (int8, f32 or bf16 rows) to a multiple of
+    16,384 rows (at least one super), the row-major ``pad_corpus_t``. Done
+    once at index load: the hot path must never copy the corpus."""
     n, dim = corpus.shape
     n_pad = _round_up(max(n, _TURBO_UNIT), _TURBO_UNIT)
     if n_pad == n:
         return corpus
-    out = torch.zeros((n_pad, dim), dtype=torch.int8, device=corpus.device)
+    out = torch.zeros((n_pad, dim), dtype=corpus.dtype, device=corpus.device)
     out[:n] = corpus
     return out
+
+
+def pad_corpus_i8(corpus: torch.Tensor) -> torch.Tensor:
+    """:func:`pad_corpus_rows` of kernel A's int8 corpus."""
+    return pad_corpus_rows(corpus)
+
+
+def _pack_pairs(x4: torch.Tensor) -> torch.Tensor:
+    """(2M, D) int4-valued int8 rows -> (M, D) bytes: byte row r holds row
+    2r in its low nibble and row 2r + 1 in its high nibble."""
+    v = x4.to(torch.int32) & 15
+    return ((v[1::2] << 4) | v[0::2]).to(torch.uint8).view(torch.int8)
+
+
+def pack_corpus_i4(x4: torch.Tensor) -> torch.Tensor:
+    """Pack an (N, D) int4-valued int8 corpus into (N_pad / 2, D) bytes,
+    N_pad = N zero-padded to a multiple of 16,384 once, at load: the
+    row-major ``pack_corpus_t_i4`` (its byte column c is byte row c
+    here)."""
+    return _pack_pairs(pad_corpus_rows(x4))
+
+
+def _row_stride(row_bytes: int) -> int:
+    """Bytes per staged query row in kernels A, D and E (``row_stride`` in
+    ``csrc/turbo_common.cuh``): whole 64-byte chunks, = 64 (mod 128)."""
+    d64 = _round_up(row_bytes, 64)
+    return d64 if d64 % 128 == 64 else d64 + 64
+
+
+def _pad_query_rows(queries: torch.Tensor, tile: int) -> torch.Tensor:
+    b, dim = queries.shape
+    b_pad = _round_up(max(b, 1), tile)
+    if b_pad == b:
+        return queries
+    return torch.cat([queries, queries.new_zeros((b_pad - b, dim))], dim=0)
 
 
 def auto_i8_group(n_docs: int, c: int) -> int:
@@ -170,9 +238,7 @@ def i8_top2g_cells(
         raise ValueError("kernel A takes contiguous row-major operands")
     if queries.data_ptr() % 16 or corpus.data_ptr() % 16:
         raise ValueError("kernel A reads 16-byte aligned rows")
-    d64 = _round_up(dim, 64)  # the kernel's staged query row, = 64 (mod 128)
-    stride = d64 if d64 % 128 == 64 else d64 + 64
-    if _I8_QUERY_TILE * stride > _SMEM_LIMIT:
+    if _I8_QUERY_TILE * _row_stride(dim) > _SMEM_LIMIT:
         raise ValueError(f"D={dim} exceeds kernel A's shared memory")
     n_super = n_pad // _TURBO_UNIT
     ng = -(-n_super // group)
@@ -219,14 +285,10 @@ def dense_topk_fast_i8_grouped(
         raise ValueError("block_c must be a multiple of 128 dividing 16384")
     n_stored = corpus.shape[0]
     n_docs = n_stored if n_docs is None else n_docs
-    b, dim = queries.shape
+    b = queries.shape[0]
     if n_stored % _TURBO_UNIT or n_stored < _TURBO_UNIT:
         corpus = pad_corpus_i8(corpus)
-    b_pad = _round_up(max(b, 1), _I8_QUERY_TILE)
-    if b_pad != b:
-        queries = torch.cat(
-            [queries, queries.new_zeros((b_pad - b, dim))], dim=0
-        )
+    queries = _pad_query_rows(queries, _I8_QUERY_TILE)
     n_super = corpus.shape[0] // _TURBO_UNIT
     ng = -(-n_super // group)
     width = 2 * ng * 128
@@ -243,7 +305,7 @@ def dense_topk_fast_i8_grouped(
     pos = keys & 127
     ids = (sups * (_TURBO_UNIT // 128) + pos) * 128 + lane[None, :]
     valid = (keys > 0) & (ids < n_docs)
-    masked = torch.where(valid, keys, torch.full_like(keys, -(2**31)))
+    masked = torch.where(valid, keys, torch.full_like(keys, _INT32_MIN))
     kv, sel = stable_topk(masked, k)
     ids = torch.gather(ids, 1, sel)
     valid = torch.gather(valid, 1, sel)
@@ -251,12 +313,307 @@ def dense_topk_fast_i8_grouped(
     # XLA folds the reference's "/ 16129" into a multiply by the float32
     # reciprocal; the same multiply keeps the values bit-identical
     vals = ((kv - (kv & 127) - _I8_FLAG128) // 128).float() * (1.0 / _I8_SCALE)
+    return _finish(vals, ids, valid, b, k_req)
+
+
+def _pad_columns(vals, ids, k_req):
+    """Pad capacity-clamped (vals, ids) with (0.0, -1) back to k_req."""
+    short = k_req - vals.shape[1]
+    if short > 0:
+        vals = torch.nn.functional.pad(vals, (0, short))
+        ids = torch.nn.functional.pad(ids, (0, short), value=-1)
+    return vals, ids
+
+
+def _check_turbo_operands(name, queries, corpus, row_bytes: int) -> None:
+    """The layout kernels D and E take: contiguous 16-byte aligned rows,
+    query rows padded to the 32-query tile, the staged tile within shared
+    memory."""
+    b_pad, dim = queries.shape
+    if corpus.shape[1] != dim or row_bytes % 16 or b_pad % _I8_QUERY_TILE:
+        raise ValueError(
+            f"{name} needs 16-byte rows and B % {_I8_QUERY_TILE} == 0; got "
+            f"queries {tuple(queries.shape)}, corpus {tuple(corpus.shape)}"
+        )
+    if not (queries.is_contiguous() and corpus.is_contiguous()):
+        raise ValueError(f"{name} takes contiguous row-major operands")
+    if queries.data_ptr() % 16 or corpus.data_ptr() % 16:
+        raise ValueError(f"{name} reads 16-byte aligned rows")
+    if _I8_QUERY_TILE * _row_stride(row_bytes) > _SMEM_LIMIT:
+        raise ValueError(f"D={dim} exceeds {name}'s shared memory")
+
+
+def _select_and_compact(packed, k, k_fetch, decode):
+    """The reference's candidate selection: the top ``k_fetch`` packed keys
+    by their float32 view (``approx_max_k``; exact here, ties to the lower
+    column), ``decode`` -> (ids, vals, valid), then, when over-fetched, an
+    exact top-k of the keys with the invalid ones pushed to -2**31. Returns
+    (vals, ids, valid), each (B, k)."""
+    fv, pcols = stable_topk(packed.view(torch.float32), k_fetch)
+    pvals = fv.view(torch.int32)
+    ids, vals, valid = decode(pvals, pcols)
+    if k_fetch > k:
+        key = torch.where(valid, pvals, torch.full_like(pvals, _INT32_MIN))
+        _, sel = stable_topk(key, k)
+        ids, vals, valid = (torch.gather(t, 1, sel) for t in (ids, vals, valid))
+    return vals, ids, valid
+
+
+def _finish(vals, ids, valid, b, k_req):
     out_vals = torch.where(valid, vals, torch.zeros_like(vals))[:b]
     out_ids = torch.where(valid, ids, torch.full_like(ids, -1))[:b]
-    if k < k_req:  # capacity-clamped: pad columns back to the requested k
-        out_vals = torch.nn.functional.pad(out_vals, (0, k_req - k))
-        out_ids = torch.nn.functional.pad(out_ids, (0, k_req - k), value=-1)
-    return out_vals, out_ids
+    return _pad_columns(out_vals, out_ids, k_req)
+
+
+# ---------------------------------------------------------------------------
+# Kernel D: f32/bf16 candidate cells, top-1 key per (query, super, lane).
+# ---------------------------------------------------------------------------
+
+
+def fast_cells_plain(
+    queries: torch.Tensor,  # (B_pad, D) f32 or bf16, B_pad a multiple of 32
+    corpus: torch.Tensor,  # (N_pad, D) same dtype, N_pad a multiple of 16,384
+    *,
+    chunk_supers: int = 8,
+) -> torch.Tensor:
+    """Plain twin of kernel D. Returns (B_pad, n_super * 128) int32: column
+    s * 128 + lane holds the max over pos in [0, 128) of
+
+        key = (bits_i32(dot(q, doc s * 16384 + pos * 128 + lane) + 2.0) & ~127) | pos
+
+    (signed int32 max; each of a cell's 128 keys carries its own pos, so
+    the max is unique). The dots run as a float32 product with TF32 off;
+    bf16 operands widen exactly, so their products are exact."""
+    require_true_f32()
+    b_pad = queries.shape[0]
+    n_super = corpus.shape[0] // _TURBO_UNIT
+    dev = queries.device
+    qf = queries.float()
+    out = torch.empty((b_pad, n_super * 128), dtype=torch.int32, device=dev)
+    pos = torch.arange(_SUPER, dtype=torch.int32, device=dev)[None, None, :, None]
+    for lo in range(0, n_super, chunk_supers):
+        hi = min(lo + chunk_supers, n_super)
+        docs = corpus[lo * _TURBO_UNIT : hi * _TURBO_UNIT].float()
+        bits = (qf @ docs.T + _SHIFT).view(torch.int32)
+        keys = (bits.view(b_pad, hi - lo, _SUPER, 128) & ~_POS_MASK) | pos
+        out[:, lo * 128 : hi * 128] = keys.amax(dim=2).view(b_pad, -1)
+    return out
+
+
+def fast_cells(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+    """Kernel D (``csrc/turbo_f32.cu``) on CUDA tensors; its plain twin on
+    CPU tensors. Same contract as :func:`fast_cells_plain`."""
+    if queries.device.type == "cpu" and corpus.device.type == "cpu":
+        return fast_cells_plain(queries, corpus)
+    _require_cuda(queries, corpus)
+    if corpus.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"kernel D takes f32 or bf16 rows, got {corpus.dtype}")
+    if queries.dtype != corpus.dtype:
+        raise TypeError("kernel D takes queries of the corpus dtype")
+    b_pad, dim = queries.shape
+    n_pad = corpus.shape[0]
+    if n_pad % _TURBO_UNIT or n_pad == 0:
+        raise ValueError(f"corpus rows {n_pad} off the 16,384-doc unit")
+    _check_turbo_operands("kernel D", queries, corpus, dim * corpus.element_size())
+    n_super = n_pad // _TURBO_UNIT
+    out = torch.empty((b_pad, n_super * 128), dtype=torch.int32, device=queries.device)
+    with torch.cuda.device(queries.device):
+        _kernels.launch(
+            "oi_turbo_f32",
+            _kernels.ptr(queries), _kernels.ptr(corpus), _kernels.ptr(out),
+            int(corpus.dtype == torch.bfloat16), b_pad, dim, n_super,
+            _kernels.stream_of(queries),
+        )
+    fast_cells.launches += 1
+    return out
+
+
+fast_cells.launches = 0
+
+
+def dense_topk_fast(
+    corpus: torch.Tensor,  # (N, D) unit-norm rows, f32 or bf16 (pad_corpus_rows)
+    queries: torch.Tensor,  # (B, D) unit-norm rows, the corpus dtype
+    k: int = 10,
+    block_c: int = 8192,
+    n_docs: int | None = None,  # true corpus size when the corpus is padded
+    plain: bool = False,  # run kernel D's plain twin (verification)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Approximate cosine top-k from kernel D's cells (the reference's
+    ``dense_topk_fast``). Returns (vals (B, k) f32, quantised to 2**-16 /
+    2**-15, ids (B, k) int32), padded with (0.0, -1); k beyond the capacity
+    of 128 per super clamps and pads. Pass :func:`pad_corpus_rows` rows and
+    the true ``n_docs``: unpadded rows pay a corpus copy per call.
+    ``block_c`` (a multiple of 128 dividing 16,384) is validated as the
+    reference does; the cells do not depend on it."""
+    if block_c % 128 or _SUPER_COLS % block_c:
+        raise ValueError("block_c must be a multiple of 128 dividing 16384")
+    n_stored = corpus.shape[0]
+    n_docs = n_stored if n_docs is None else n_docs
+    b = queries.shape[0]
+    if n_stored % _SUPER_COLS or n_stored < _SUPER_COLS:
+        corpus = pad_corpus_rows(corpus)
+    queries = _pad_query_rows(queries, _I8_QUERY_TILE)
+    n_super = corpus.shape[0] // _SUPER_COLS
+    k_req = k
+    k = min(k, n_super * 128)
+    packed = (fast_cells_plain if plain else fast_cells)(queries.contiguous(), corpus)
+    # the reference's over-fetch: 128 slots where zero-padding may shadow
+    # negative-scored docs of a small corpus, else the 32-slot margin
+    padded = corpus.shape[0] != n_docs
+    pad_slots = 128 if (padded and n_docs <= 262_144) else 0
+    k_fetch = min(k + max(pad_slots, 32), n_super * 128)
+
+    def decode(pvals, pcols):
+        pos = pvals & _POS_MASK  # sub-block within the super
+        ids = (((pcols // 128) * 128 + pos) * 128 + pcols % 128).to(torch.int32)
+        vals = (pvals & ~_POS_MASK).view(torch.float32) - _SHIFT
+        return ids, vals, ids < n_docs  # zero-padding decodes past n_docs
+
+    vals, ids, valid = _select_and_compact(packed, k, k_fetch, decode)
+    return _finish(vals, ids, valid, b, k_req)
+
+
+# ---------------------------------------------------------------------------
+# Kernels E1/E2: int8 query x nibble-packed int4 corpus, top-1 or top-2 keys
+# per (query, super, lane).
+# ---------------------------------------------------------------------------
+
+
+def i4_cells_plain(
+    queries: torch.Tensor,  # (B_pad, D) int8, B_pad a multiple of 32
+    corpus: torch.Tensor,  # (N_pad / 2, D) packed bytes (pack_corpus_i4)
+    *,
+    slots: int,
+    chunk_supers: int = 8,
+) -> torch.Tensor:
+    """Plain twin of kernels E1 (``slots=1``) and E2 (``slots=2``). Returns
+    (B_pad, slots * n_super * 128) int32: column s * 128 + lane of slot j's
+    half holds the j-th largest over the super's 128 keys of its lane,
+
+        key = dot * 128 + _I8_FLAG128 + pos,  pos = 2 * byte_tile + parity,
+
+    for doc s * 16384 + 2 * (byte_tile * 128 + lane) + parity. A cell's keys
+    are distinct, so its top-2 is unique. The dots run as a float32 product
+    with TF32 off: every partial sum is an integer below 2**24."""
+    require_true_f32()
+    b_pad = queries.shape[0]
+    unit_b = _TURBO_UNIT // 2
+    n_super = corpus.shape[0] // unit_b
+    half = n_super * 128
+    dev = queries.device
+    qf = queries.float()
+    out = torch.empty((b_pad, slots * half), dtype=torch.int32, device=dev)
+    pos = (_I8_FLAG128 + torch.arange(_SUPER, dtype=torch.int32, device=dev))
+    pos = pos[None, None, :, None]
+    for lo in range(0, n_super, chunk_supers):
+        hi = min(lo + chunk_supers, n_super)
+        v = corpus[lo * unit_b : hi * unit_b].to(torch.int32)
+        # sign-extended nibbles (the reference's (v << 28) >> 28, (v << 24) >> 28)
+        nibbles = (((v & 15) ^ 8) - 8, v >> 4)
+        dots = torch.stack(
+            [(qf @ x.float().T).view(b_pad, hi - lo, _I4_SUPER_B, 128) for x in nibbles],
+            dim=3,
+        ).to(torch.int32)  # (b_pad, supers, byte_tile, parity, lane)
+        keys = dots.view(b_pad, hi - lo, _SUPER, 128) * 128 + pos
+        top = torch.topk(keys, slots, dim=2).values  # distinct keys
+        for j in range(slots):
+            out[:, j * half + lo * 128 : j * half + hi * 128] = top[:, :, j].reshape(b_pad, -1)
+    return out
+
+
+def i4_cells(queries: torch.Tensor, corpus: torch.Tensor, *, slots: int) -> torch.Tensor:
+    """Kernel E1 (``slots=1``) or E2 (``slots=2``) of ``csrc/turbo_i4.cu`` on
+    CUDA tensors; their plain twin on CPU tensors. Same contract as
+    :func:`i4_cells_plain`. ``launches`` counts each slot count apart."""
+    if slots not in (1, 2):
+        raise ValueError(f"slots must be 1 or 2, got {slots}")
+    if queries.device.type == "cpu" and corpus.device.type == "cpu":
+        return i4_cells_plain(queries, corpus, slots=slots)
+    _require_cuda(queries, corpus)
+    if queries.dtype != torch.int8 or corpus.dtype != torch.int8:
+        raise TypeError("kernels E take int8 queries and a packed int8 corpus")
+    b_pad, dim = queries.shape
+    n_packed = corpus.shape[0]
+    if n_packed % (_TURBO_UNIT // 2) or n_packed == 0 or dim >= _I4_DIM_LIMIT:
+        raise ValueError(
+            f"kernels E: {n_packed} byte rows off the 8,192-row unit, or "
+            f"D={dim} not below {_I4_DIM_LIMIT}"
+        )
+    _check_turbo_operands("kernels E", queries, corpus, dim)
+    n_super = n_packed // (_TURBO_UNIT // 2)
+    out = torch.empty(
+        (b_pad, slots * n_super * 128), dtype=torch.int32, device=queries.device
+    )
+    with torch.cuda.device(queries.device):
+        _kernels.launch(
+            "oi_turbo_i4",
+            _kernels.ptr(queries), _kernels.ptr(corpus), _kernels.ptr(out),
+            slots, b_pad, dim, n_super, _kernels.stream_of(queries),
+        )
+    i4_cells.launches[slots] += 1
+    return out
+
+
+i4_cells.launches = {1: 0, 2: 0}
+
+
+def dense_topk_fast_i4(
+    corpus: torch.Tensor,  # (N_pad / 2, D) nibble-packed bytes (pack_corpus_i4)
+    queries: torch.Tensor,  # (B, D) int8 quantised unit-norm rows (scale 127)
+    k: int = 10,
+    block_c: int = 4096,  # byte rows per reference grid step
+    n_docs: int | None = None,
+    slots: int = 2,
+    scale: float = _I4_SCALE_DEFAULT,
+    plain: bool = False,  # run the kernels' plain twin (verification)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """int4 approximate cosine top-k (the reference's ``dense_topk_fast_i4``):
+    kernel E1/E2's cells, then the decode. Returns (vals (B, k) f32, ids
+    (B, k) int32), padded with (0.0, -1); k beyond the capacity of
+    128 * slots per super clamps and pads. Callers pass their candidate
+    width as k and rescore exactly. ``block_c`` (a multiple of 128 dividing
+    8,192) is validated as the reference does; the cells do not depend on
+    it."""
+    if corpus.dtype != torch.int8 or queries.dtype != torch.int8:
+        raise TypeError("dense_topk_fast_i4 takes int8 operands")
+    if slots not in (1, 2):
+        raise ValueError(f"slots must be 1 or 2, got {slots}")
+    n_packed = corpus.shape[0]
+    n_stored = 2 * n_packed
+    n_docs = n_stored if n_docs is None else n_docs
+    b = queries.shape[0]
+    unit_b = _TURBO_UNIT // 2
+    if block_c % 128 or unit_b % block_c:
+        raise ValueError("block_c must be a multiple of 128 dividing 8192")
+    if n_packed % unit_b or n_packed < unit_b:
+        raise ValueError("pack the corpus with pack_corpus_i4 (pads to the unit)")
+    queries = _pad_query_rows(queries, _I8_QUERY_TILE)
+    n_super = n_stored // _TURBO_UNIT
+    lanes = 128 * slots
+    k_req = k
+    k = min(k, n_super * lanes)
+    half = n_super * 128
+    cells = i4_cells_plain if plain else i4_cells
+    packed = cells(queries.contiguous(), corpus, slots=slots)
+    padded = n_stored != n_docs
+    pad_slots = lanes if (padded and n_docs <= 262_144) else 0
+    k_fetch = min(k + max(pad_slots, 32), n_super * lanes)
+    # XLA folds the reference's "/ (127 * scale)" into a multiply by the
+    # float32 reciprocal; the same multiply keeps the values bit-identical
+    inv = float(np.float32(1.0) / np.float32(127.0 * scale))
+
+    def decode(pvals, pcols):
+        pos = pvals & 127  # 2 * byte_tile + parity within the super
+        col = pcols % half  # both slot halves decode alike
+        ids = (
+            (col // 128) * _TURBO_UNIT + (pos >> 1) * 256 + 2 * (col % 128) + (pos & 1)
+        ).to(torch.int32)
+        vals = ((pvals - pos - _I8_FLAG128) // 128).float() * inv
+        return ids, vals, (ids < n_docs) & (pvals > 0)
+
+    vals, ids, valid = _select_and_compact(packed, k, k_fetch, decode)
+    return _finish(vals, ids, valid, b, k_req)
 
 
 # ---------------------------------------------------------------------------
@@ -271,11 +628,7 @@ def fused_topk_plain(
     widen exactly), order (score desc, doc id asc); slots beyond the
     corpus are (0.0, -1)."""
     vals, ids = dense_topk_xla(doc_emb, queries, k)
-    short = k - vals.shape[1]
-    if short > 0:
-        vals = torch.nn.functional.pad(vals, (0, short))
-        ids = torch.nn.functional.pad(ids, (0, short), value=-1)
-    return vals, ids
+    return _pad_columns(vals, ids, k)
 
 
 def fused_topk(
@@ -384,11 +737,16 @@ def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     i8_top2g_cells.launches = 0
     fused_topk.launches = 0
+    fast_cells.launches = 0
+    i4_cells.launches = {1: 0, 2: 0}
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches per kernel wrapper since the last reset."""
+    """Launches per kernel since the last reset."""
     return {
         "i8_top2g": i8_top2g_cells.launches,
         "fused_topk": fused_topk.launches,
+        "turbo_f32": fast_cells.launches,
+        "turbo_i4": i4_cells.launches[1],
+        "turbo_i4_top2": i4_cells.launches[2],
     }

@@ -6,15 +6,19 @@ NVIDIA card (sm_90a) and nvcc:
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest -q
 
-Tolerances: kernel A's cells are bit-identical to the twin's (integer
-arithmetic); kernel B's scores agree to 2e-6 and its ids are equal except
-where two docs' scores differ by less than 1e-5.
+Tolerances: the cells of kernels A, E1 and E2 are bit-identical to the
+twins' (integer arithmetic); kernel D's are too on dyadic operands (every
+partial sum exact), and elsewhere a cell's score moves by at most one step
+of 2**-15 (the sum order); kernel B's scores agree to 2e-6 and its ids are
+equal except where two docs' scores differ by less than 1e-5.
 """
 
 import numpy as np
 import pytest
 import torch
+from torch_dense_utils import QUANTUM, assert_quantum_rule, dyadic_rows
 
+from openintel_tpu.index.schema import DenseIndex
 from openintel_tpu.index.synthetic import (
     synthetic_embeddings,
     synthetic_postings_index,
@@ -87,5 +91,109 @@ def test_hybrid_int8_path_matches_twins(cuda):
     got = retr.finalize_prepared(prep, retr.run_prepared_device(prep))
     assert T.launch_counts()["i8_top2g"] == 3
     want = retr.finalize_prepared(prep, retr.run_prepared_device(prep, plain=True))
+    np.testing.assert_array_equal(got.ids, want.ids)
+    np.testing.assert_array_equal(got.scores, want.scores)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim", [64, 384])
+def test_kernel_d_cells_match_twin(cuda, dtype, dim):
+    """Dyadic operands: cells bit-identical. Random unit rows: each cell's
+    score within one step, its position equal unless the twin's two docs
+    score within a step of each other."""
+    n = 2 * T._TURBO_UNIT + 5_000  # 3 supers, the last one short
+    rng = np.random.default_rng(11)
+    q = torch.from_numpy(dyadic_rows(rng, 64, dim)).to(cuda, dtype)
+    corpus = T.pad_corpus_rows(torch.from_numpy(dyadic_rows(rng, n, dim)).to(cuda, dtype))
+    before = T.launch_counts()["turbo_f32"]
+    got = T.fast_cells(q, corpus)
+    torch.cuda.synchronize()
+    assert T.launch_counts()["turbo_f32"] == before + 1
+    assert torch.equal(got, T.fast_cells_plain(q, corpus))
+
+    emb = synthetic_embeddings(n, dim=dim, seed=12)
+    qr, _ = synthetic_query_embeddings(emb, 64, seed=13)
+    q = torch.from_numpy(qr).to(cuda, dtype)
+    corpus = T.pad_corpus_rows(torch.from_numpy(emb).to(cuda, dtype))
+    got, want = T.fast_cells(q, corpus), T.fast_cells_plain(q, corpus)
+    decode = lambda c: (c & ~127).view(torch.float32).double()  # noqa: E731
+    assert (decode(got) - decode(want)).abs().max() <= QUANTUM
+    scores = (q.float() @ corpus.float().T).view(64, 3, 128, 128)
+    pick = lambda c: scores.gather(2, (c & 127).long().view(64, 3, 1, 128))  # noqa: E731
+    moved = (got & 127) != (want & 127)
+    gap = (pick(got) - pick(want)).abs().view(64, -1)
+    assert (gap[moved] <= QUANTUM).all()
+
+
+@pytest.mark.parametrize("slots", [1, 2])
+@pytest.mark.parametrize("data", ["random", "ties"])
+def test_kernel_e_cells_match_twin(cuda, slots, data):
+    n = 2 * T._TURBO_UNIT + 5_001  # ragged: the last doc pairs with padding
+    rng = np.random.default_rng(14)
+    if data == "ties":  # nibbles and queries in {-1, 0, 1}
+        e4 = torch.from_numpy(rng.integers(-1, 2, (n, 384)).astype(np.int8))
+        q8 = torch.from_numpy(rng.integers(-1, 2, (64, 384)).astype(np.int8))
+    else:
+        emb = synthetic_embeddings(n, dim=384, seed=15)
+        e4 = T.quantize_int4(torch.from_numpy(emb))
+        q8 = T.quantize_int8(torch.from_numpy(synthetic_query_embeddings(emb, 64, seed=16)[0]))
+    packed = T.pack_corpus_i4(e4).to(cuda)
+    q8 = q8.to(cuda)
+    name = "turbo_i4_top2" if slots == 2 else "turbo_i4"
+    before = T.launch_counts()[name]
+    got = T.i4_cells(q8, packed, slots=slots)
+    torch.cuda.synchronize()
+    assert T.launch_counts()[name] == before + 1
+    assert torch.equal(got, T.i4_cells_plain(q8, packed, slots=slots))
+    kv, ki = T.dense_topk_fast_i4(packed, q8[:45], k=300, n_docs=n, slots=slots)
+    pv, pi = T.dense_topk_fast_i4(packed, q8[:45], k=300, n_docs=n, slots=slots, plain=True)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+def _hybrid_pair(cuda, kernel, emb):
+    n = emb.shape[0]
+    index = synthetic_postings_index(n, vocab_size=2_000, seed=5)
+    rows = torch.from_numpy(emb).to(torch.bfloat16)
+    dense = DenseIndex(embeddings=rows, n_docs=n, dim=emb.shape[1])
+    return HybridRetriever(index, dense, kernel=kernel, device=cuda, device_batch=32)
+
+
+def _run_both(retr, q, counter):
+    rng = np.random.default_rng(7)
+    term_ids = [list(rng.integers(20, 2_000, size=3)) for _ in range(q.shape[0])]
+    prep = retr.prepare(term_ids, q, k=10, candidates_per_arm=32)
+    T.reset_launch_counts()
+    got = retr.finalize_prepared(prep, retr.run_prepared_device(prep))
+    assert T.launch_counts()[counter] == prep.queries.shape[0]
+    want = retr.finalize_prepared(prep, retr.run_prepared_device(prep, plain=True))
+    return got, want
+
+
+def test_hybrid_fast_path_matches_twins(cuda):
+    """Dyadic rows and queries: the kernel path equals the twin path."""
+    rng = np.random.default_rng(17)
+    retr = _hybrid_pair(cuda, "fast", dyadic_rows(rng, 40_000, 64))
+    got, want = _run_both(retr, dyadic_rows(rng, 70, 64), "turbo_f32")
+    np.testing.assert_array_equal(got.ids, want.ids)
+    np.testing.assert_array_equal(got.scores, want.scores)
+
+
+def test_kernel_d_decode_random_rows_within_a_step(cuda):
+    emb = synthetic_embeddings(40_000, dim=64, seed=18)
+    q, _ = synthetic_query_embeddings(emb, 70, seed=19)
+    corpus = convert.fast_corpus(torch.from_numpy(emb).to(cuda, torch.bfloat16))
+    qq = torch.from_numpy(q).to(cuda, torch.bfloat16)
+    scores = (qq.double() @ corpus[:40_000].double().T).cpu().numpy()
+    for k in (32, 3 * 128 + 7):  # the second clamps and pads
+        kv, ki = T.dense_topk_fast(corpus, qq, k=k, n_docs=40_000)
+        pv, pi = T.dense_topk_fast(corpus, qq, k=k, n_docs=40_000, plain=True)
+        assert_quantum_rule(kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu(), scores)
+
+
+def test_hybrid_int4_path_matches_twins(cuda):
+    emb = synthetic_embeddings(40_000, dim=64, seed=20)
+    retr = _hybrid_pair(cuda, "int4", emb)
+    q, _ = synthetic_query_embeddings(emb, 70, seed=21)
+    got, want = _run_both(retr, q, "turbo_i4_top2")
     np.testing.assert_array_equal(got.ids, want.ids)
     np.testing.assert_array_equal(got.scores, want.scores)

@@ -263,6 +263,12 @@ def test_exact_rescore_matches_jax(dtype):
 # ---- wrappers: CPU tensors take the twin, nothing else falls back ---------
 
 
+NO_LAUNCHES = {
+    "i8_top2g": 0, "fused_topk": 0, "turbo_f32": 0, "turbo_i4": 0,
+    "turbo_i4_top2": 0,
+}
+
+
 def test_wrappers_route_cpu_to_twins_without_counting():
     T.reset_launch_counts()
     q = torch.zeros((32, 16), dtype=torch.int8)
@@ -270,7 +276,11 @@ def test_wrappers_route_cpu_to_twins_without_counting():
     cells = T.i8_top2g_cells(q, corpus, group=1, sub=64)
     assert all(c.shape == (32, 128) for c in cells)
     T.fused_topk(torch.eye(4), torch.eye(4), 2)
-    assert T.launch_counts() == {"i8_top2g": 0, "fused_topk": 0}
+    assert T.fast_cells(q.float(), corpus.float()).shape == (32, 128)
+    packed = corpus[: T._TURBO_UNIT // 2]
+    for slots in (1, 2):
+        assert T.i4_cells(q, packed, slots=slots).shape == (32, 128 * slots)
+    assert T.launch_counts() == NO_LAUNCHES
 
 
 def test_wrappers_refuse_non_cuda_devices():
@@ -282,4 +292,8 @@ def test_wrappers_refuse_non_cuda_devices():
         T.i8_top2g_cells(q, corpus, group=1, sub=64)
     with pytest.raises(ValueError, match="CUDA"):
         T.fused_topk(torch.empty((4, 4), device="meta"), torch.empty((2, 4)), 2)
-    assert T.launch_counts() == {"i8_top2g": 0, "fused_topk": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        T.fast_cells(q.float(), corpus.float())
+    with pytest.raises(ValueError, match="CUDA"):
+        T.i4_cells(q, corpus[: T._TURBO_UNIT // 2], slots=2)
+    assert T.launch_counts() == NO_LAUNCHES

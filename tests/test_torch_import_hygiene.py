@@ -63,15 +63,19 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(_kernels.KernelBuildError, match="nvcc"):
         _kernels.build()
-    with pytest.raises(_kernels.KernelBuildError, match="nvcc"):
-        _kernels.launch("oi_i8_top2g")
+    for name in ("oi_i8_top2g", "oi_turbo_f32", "oi_turbo_i4"):
+        with pytest.raises(_kernels.KernelBuildError, match="nvcc"):
+            _kernels.launch(name)
     assert not (tmp_path / "build").exists()
 
 
 def test_library_name_follows_the_sources():
-    """The build is cached by a hash of the sources and flags, so a change
-    to any kernel source builds a new library."""
+    """The build is cached by a hash of the sources, headers and flags, so
+    a change to any kernel source or shared header builds a new library."""
     so = _kernels.library_path()
     assert so.parent == _kernels.BUILD_DIR
     assert so.name.startswith("libopenintel_tpu_torch_") and so.suffix == ".so"
-    assert {p.name for p in _kernels.sources()} == {"fused_topk.cu", "i8_top2g.cu"}
+    assert {p.name for p in _kernels.sources()} == {
+        "fused_topk.cu", "i8_top2g.cu", "turbo_f32.cu", "turbo_i4.cu"
+    }
+    assert {p.name for p in _kernels.headers()} == {"turbo_common.cuh"}

@@ -6,6 +6,13 @@ The same index and the same seeded queries go through the JAX retrievers
 CPU tensors). Tolerance, the near-tie rule: fused scores agree to 1e-5 (the
 z-blend and the f32 rescore sum in another order than XLA); ids are equal
 except inside clusters of scores within 1e-5, where the id sets agree.
+
+``kernel="fast"`` has no rescore: its dense scores are kernel D's f32 sums
+truncated to steps of 2**-16, and a sum in another order can move one by a
+step, which moves a fused score by ~1e-3. Its cases therefore run on dyadic
+rows and queries (exact in any sum order, ``torch_dense_utils``), given to
+both packages as they are (a ``DenseIndex`` made directly, or an embedder
+whose rows are exactly unit-norm), so the 1e-5 rule holds.
 """
 
 import ml_dtypes
@@ -13,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 from ranking_utils import assert_ranking_close
+from torch_dense_utils import dyadic_rows
 
 from openintel_tpu.index.schema import DenseIndex
 from openintel_tpu.index.synthetic import (
@@ -52,10 +60,28 @@ def corpus():
     return index, emb, term_ids, q
 
 
-def _pair(corpus, kernel, store, fusion, device_batch=16):
+@pytest.fixture(scope="module")
+def dyadic():
+    """Dyadic doc rows and 40 dyadic queries for the fast cases."""
+    rng = np.random.default_rng(8)
+    return dyadic_rows(rng, N, DIM), dyadic_rows(rng, 40, DIM)
+
+
+def _sign_embedder(texts):
+    """Rows of +-1/8 over 64 dims: exactly unit-norm (normalising leaves
+    them as they are) and dyadic."""
+    return np.where(HashingEmbedder(dim=DIM)(texts) >= 0, 0.125, -0.125).astype(
+        np.float32
+    )
+
+
+def _pair(corpus, kernel, store, fusion, device_batch=16, rows=None):
     index, emb, _, _ = corpus
     dtype = ml_dtypes.bfloat16 if store == "bf16" else np.float32
-    dense = DenseIndex.from_embeddings(emb, dtype=dtype)
+    if rows is None:
+        dense = DenseIndex.from_embeddings(emb, dtype=dtype)
+    else:  # as they are: normalising would make them non-dyadic
+        dense = DenseIndex(embeddings=rows.astype(dtype), n_docs=N, dim=DIM)
     j = jr.HybridRetriever(
         index, dense, kernel=kernel, fusion=fusion, device_batch=device_batch
     )
@@ -68,12 +94,19 @@ def _pair(corpus, kernel, store, fusion, device_batch=16):
 
 @pytest.mark.parametrize("fusion", ["zblend", "rrf"])
 @pytest.mark.parametrize(
-    "kernel,store", [("xla", "bf16"), ("int8", "bf16"), ("pallas", "f32")]
+    "kernel,store",
+    [
+        ("xla", "bf16"), ("int8", "bf16"), ("pallas", "f32"),
+        ("fast", "bf16"), ("fast", "f32"), ("int4", "bf16"),
+    ],
 )
-def test_hybrid_matches_jax(corpus, kernel, store, fusion):
+def test_hybrid_matches_jax(corpus, dyadic, kernel, store, fusion):
     """40 queries in sub-batches of 16 (the last one padded)."""
     _, _, term_ids, q = corpus
-    j, t = _pair(corpus, kernel, store, fusion)
+    rows = None
+    if kernel == "fast":
+        rows, q = dyadic
+    j, t = _pair(corpus, kernel, store, fusion, rows=rows)
     assert t.kernel == kernel
     want = j.search_prepared(term_ids, q, k=K, candidates_per_arm=C)
     got = t.search_prepared(term_ids, q, k=K, candidates_per_arm=C)
@@ -108,14 +141,17 @@ def test_empty_batch(corpus):
     assert t.run_prepared(prep).ids.shape == (0, K)
 
 
-@pytest.mark.parametrize("kernel", ["xla", "int8", "pallas"])
+@pytest.mark.parametrize("kernel", ["xla", "int8", "pallas", "fast", "int4"])
 def test_text_search_k_beyond_n_docs(kernel):
     """Built from text: k = 50 over 30 docs pads every ranking with
     (0.0, -1) exactly as the JAX retriever does."""
     docs = synthetic_token_corpus(30, vocab_size=60, seed=7)
     queries = synthetic_queries_from_docs(docs, 5, seed=8) + ["unknown words"]
-    j = jr.HybridRetriever.build(docs, dim=DIM, kernel=kernel)
-    t = tr.HybridRetriever.build(docs, dim=DIM, kernel=kernel, device="cpu")
+    embedder = _sign_embedder if kernel == "fast" else None
+    j = jr.HybridRetriever.build(docs, dim=DIM, kernel=kernel, embedder=embedder)
+    t = tr.HybridRetriever.build(
+        docs, dim=DIM, kernel=kernel, embedder=embedder, device="cpu"
+    )
     want, got = j.search(queries, k=50), t.search(queries, k=50)
     assert got.ids.shape == (6, 30)  # k clamps to n_docs, as in the reference
     _assert_close(got, want)
@@ -131,7 +167,7 @@ def test_text_search_default_kernel_matches_jax():
     _assert_close(t.search(queries, k=K), j.search(queries, k=K))
 
 
-def test_bm25_and_dense_retrievers_match_jax(corpus):
+def test_bm25_and_dense_retrievers_match_jax(corpus, dyadic):
     index, emb, _, q = corpus
     texts = ["t21 t40 t77", "t30", "t1999 t25 t25", "nothing known"]
     jb = jr.BM25Retriever(index).search(texts, k=K)
@@ -139,10 +175,15 @@ def test_bm25_and_dense_retrievers_match_jax(corpus):
     np.testing.assert_array_equal(tb.ids, jb.ids)
     np.testing.assert_array_equal(tb.scores, jb.scores)
     dense = DenseIndex.from_embeddings(emb, dtype=ml_dtypes.bfloat16)
-    for kernel in ("xla", "int8", "pallas"):
-        jd = jr.DenseRetriever(dense, kernel=kernel).search_embeddings(q[:9], K)
-        td = tr.DenseRetriever(dense, kernel=kernel, device="cpu")
-        _assert_close(td.search_embeddings(q[:9], K), jd)
+    rows, dq = dyadic
+    dyadic_dense = DenseIndex(
+        embeddings=rows.astype(ml_dtypes.bfloat16), n_docs=N, dim=DIM
+    )
+    for kernel in ("xla", "int8", "pallas", "int4", "fast"):
+        d, qq = (dyadic_dense, dq) if kernel == "fast" else (dense, q)
+        jd = jr.DenseRetriever(d, kernel=kernel).search_embeddings(qq[:9], K)
+        td = tr.DenseRetriever(d, kernel=kernel, device="cpu")
+        _assert_close(td.search_embeddings(qq[:9], K), jd)
 
 
 def test_hashing_embedder_copy_matches_original():
@@ -171,13 +212,10 @@ def test_auto_select_mirrors_the_reference():
 def test_unported_paths_raise(corpus):
     index, emb, term_ids, q = corpus
     dense = DenseIndex.from_embeddings(emb[:100])
-    for kernel in ("fast", "int4"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tr.DenseRetriever(dense, kernel=kernel, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tr.dense_arm_topk(kernel, torch.zeros(1, 1), torch.zeros(1, 1), 1, n_docs=1)
     with pytest.raises(ValueError):
         tr.DenseRetriever(dense, kernel="nope", device="cpu")
+    with pytest.raises(ValueError):
+        tr.dense_arm_topk("nope", torch.zeros(1, 1), torch.zeros(1, 1), 1, n_docs=1)
     t = tr.HybridRetriever.build(["a b", "b c"], dim=8, device="cpu")
     mask = np.ones(2, bool)
     with pytest.raises(NotImplementedError, match="filtered"):
