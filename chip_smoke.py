@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # all phases (one card, ~75 s)
     python3 chip_smoke.py --quick    # build + kernel-vs-twin checks only
+    python3 chip_smoke.py --profile  # all phases, and a profile of each path
 
 Phases, one line of output each (any failed check raises, exit code != 0),
 run in the order 1, 2, 3, 6, 7 (the kernel checks; ``--quick`` stops
@@ -43,6 +44,12 @@ must have launched. The line before the last is a JSON object with each
 kernel's launches (from its window), error and time beside its twin's; the
 last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
 script exits non-zero and prints no result.
+
+With ``--profile``, phases 4, 8 and 9 each add a ``profile`` line:
+``torch.profiler`` over 3 runs of the path's sub-batches gives the device
+time per sub-batch, the largest kernels, the launches per sub-batch and the
+device's busy share of the profiled wall time (a floor: the profiler slows
+the host).
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 from openintel_tpu import native
 from openintel_tpu.index.synthetic import (
@@ -177,7 +185,7 @@ def phase_kernel_a() -> None:
     corpus = convert.int8_corpus(emb)
     q8 = T.quantize_int8(torch.from_numpy(unit_rows(rng, b, DIM))).to(dev)
     # tie-heavy operands: entries in {-1, 0, 1}, so equal keys are common
-    tie_corpus = T.pad_corpus_i8(
+    tie_corpus = T.pad_corpus_rows(
         torch.from_numpy(rng.integers(-1, 2, (n, DIM)).astype(np.int8)).to(dev)
     )
     tie_q = torch.from_numpy(rng.integers(-1, 2, (b, DIM)).astype(np.int8)).to(dev)
@@ -441,11 +449,15 @@ def build_path(corpus, kernel):
     retr = HybridRetriever(
         index, dense, kernel=kernel, device="cuda", device_batch=BATCH
     )
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
     prep = retr.prepare(term_ids, q, k=K, candidates_per_arm=C_ARM)
     torch.cuda.synchronize()
     log(
-        f"setup {retr.kernel}: plan width {prep.plan_doc_ids.shape[2]}, "
-        f"index on the card in {time.perf_counter() - t0:.1f}s"
+        f"setup {retr.kernel}: index on the card in {t1 - t0:.1f}s; prepare of "
+        f"{len(term_ids)} queries (host plan, quantise, copies) "
+        f"{(time.perf_counter() - t1) * 1e3:.1f} ms, plan width "
+        f"{prep.plan_doc_ids.shape[2]}"
     )
     return retr, prep
 
@@ -503,6 +515,39 @@ def step_ms(retr, prep, plain: bool, reps: int) -> float:
     return statistics.median(once() for _ in range(reps))
 
 
+def profile_step(retr, prep, steps: int = 3) -> str:
+    """``torch.profiler`` over ``steps`` runs of all sub-batches: device time
+    per sub-batch, the three largest kernels, launches per sub-batch, and the
+    device's busy share of the profiled wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    retr.run_prepared_device(prep)  # warm
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            retr.run_prepared_device(prep)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in dev)
+    if not total_us:
+        raise AssertionError("the profiler saw no device time")
+    per = steps * prep.queries.shape[0]
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:3]
+    tops = "; ".join(
+        f"{e.key[:60]} {e.self_device_time_total / per / 1e3:.3f} ms "
+        f"({100 * e.self_device_time_total / total_us:.1f} %)"
+        for e in top
+    )
+    return (
+        f"device {total_us / per / 1e3:.3f} ms per sub-batch in "
+        f"{sum(e.count for e in dev) / per:.0f} launches, busy share "
+        f"{total_us / wall_us:.3f}; largest: {tops}"
+    )
+
+
 def exact_hybrid(retr, prep, rows, q32):
     """The hybrid with the exact dense arm (blocked f32 product over the
     stored rows, f32 queries): the reference recall is measured against."""
@@ -540,7 +585,7 @@ def text_corpus():
     return docs, queries
 
 
-def phase_int8_path(corpus, card) -> dict:
+def phase_int8_path(corpus, card, profile: bool) -> dict:
     retr, prep = build_path(corpus, None)
     if retr.kernel != "int8":
         raise AssertionError(f"auto-select gave {retr.kernel}, not int8")
@@ -567,6 +612,8 @@ def phase_int8_path(corpus, card) -> dict:
     )
     if recall < RECALL_FLOOR:
         raise AssertionError(f"recall@{K} {recall:.4f} < {RECALL_FLOOR}")
+    if profile:
+        log(f"profile int8: {profile_step(retr, prep)} [{card}]")
 
     # kernel A alone at the main path's shapes
     q8 = prep.queries_i8[0].contiguous()
@@ -647,7 +694,7 @@ def dense_arms(retr, prep, plain: bool):
     ]
 
 
-def phase_fast_path(corpus, card) -> dict:
+def phase_fast_path(corpus, card, profile: bool) -> dict:
     retr, prep = build_path(corpus, "fast")
     (res, first_s), counts = counted(lambda: drive(retr, prep))
     expect_launches(counts, turbo_f32=N_BATCHES)
@@ -680,6 +727,8 @@ def phase_fast_path(corpus, card) -> dict:
     )
     if recall < FAST_RECALL_FLOOR:
         raise AssertionError(f"fast recall@{K} {recall:.4f} < {FAST_RECALL_FLOOR}")
+    if profile:
+        log(f"profile fast: {profile_step(retr, prep)} [{card}]")
 
     # kernel D alone at the main path's shapes
     q = prep.queries[0].contiguous()
@@ -703,7 +752,7 @@ def phase_fast_path(corpus, card) -> dict:
     }
 
 
-def phase_int4_path(corpus, card) -> list:
+def phase_int4_path(corpus, card, profile: bool) -> list:
     retr, prep = build_path(corpus, "int4")
     (res, first_s), counts = counted(lambda: drive(retr, prep))
     expect_launches(counts, turbo_i4_top2=N_BATCHES)
@@ -725,6 +774,8 @@ def phase_int4_path(corpus, card) -> list:
     )
     if recall < RECALL_FLOOR:
         raise AssertionError(f"int4 recall@{K} {recall:.4f} < {RECALL_FLOOR}")
+    if profile:
+        log(f"profile int4: {profile_step(retr, prep)} [{card}]")
 
     # the public op with slots=1 (kernel E1), as a caller would use it
     q8 = prep.queries_i8[0]
@@ -767,7 +818,7 @@ def phase_int4_path(corpus, card) -> list:
     return out
 
 
-def run(quick: bool) -> None:
+def run(quick: bool, profile: bool) -> None:
     env = phase_environment()
     card = env["card"]
     phase_kernel_a()
@@ -779,13 +830,13 @@ def run(quick: bool) -> None:
         return
 
     corpus = build_corpus()
-    kernels = [phase_int8_path(corpus, card)]
+    kernels = [phase_int8_path(corpus, card, profile)]
     free_device()
     kernels.append(phase_text(card))
     free_device()
-    kernels.append(phase_fast_path(corpus, card))
+    kernels.append(phase_fast_path(corpus, card, profile))
     free_device()
-    kernels += phase_int4_path(corpus, card)
+    kernels += phase_int4_path(corpus, card, profile)
     free_device()
 
     if "jax" in sys.modules:
@@ -801,11 +852,15 @@ def main() -> int:
         "--quick", action="store_true",
         help="stop after the kernel build and the kernel-vs-twin checks",
     )
+    parser.add_argument(
+        "--profile", action="store_true",
+        help="also profile each full-width path's step (torch.profiler)",
+    )
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
         return 2
-    run(args.quick)
+    run(args.quick, args.profile)
     device = {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -68,11 +68,10 @@ def int8_corpus(rows: torch.Tensor, chunk: int = 1 << 16) -> torch.Tensor:
     return out
 
 
-def fast_corpus(rows: torch.Tensor) -> torch.Tensor:
-    """Kernel D's candidate corpus: the stored (N, D) f32/bf16 rows with
-    zero rows up to a multiple of 16,384, on the rows' device (the row-major
-    form of the reference's padded transposed operand)."""
-    return pad_corpus_rows(rows)
+# Kernel D's candidate corpus: the stored (N, D) f32/bf16 rows with zero rows
+# up to a multiple of 16,384, on the rows' device (the row-major form of the
+# reference's padded transposed operand).
+fast_corpus = pad_corpus_rows
 
 
 def int4_corpus(rows: torch.Tensor, chunk: int = 1 << 16) -> torch.Tensor:

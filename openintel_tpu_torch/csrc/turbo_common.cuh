@@ -1,8 +1,11 @@
-// Shared pieces of the candidate-cell kernels A (i8_top2g.cu), D
-// (turbo_f32.cu) and E1/E2 (turbo_i4.cu).
+// Shared pieces of the candidate-cell kernels D (turbo_f32.cu) and E1/E2
+// (turbo_i4.cu). Kernel A (i8_top2g.cu) walks its corpus the same way with
+// its own copy of this loop: on stream_docs it ran 3 % slower at the main
+// path's shapes, timed alternately against its own loop on an H100
+// (PERF.md), so it keeps its own.
 //
-// All three stream a row-major corpus in 128-row sub-blocks against a tile
-// of 32 queries staged in shared memory. A warp owns 8 doc lanes (one
+// Both stream a row-major corpus in 128-row sub-blocks against a tile of
+// 32 queries staged in shared memory. A warp owns 8 doc lanes (one
 // mma.sync n tile): its thread (gq = lane / 4, tq = lane % 4) loads 16
 // bytes of doc row gq per 64-byte k chunk straight from device memory into
 // B fragments, one step ahead of the products, and reads the matching 16

@@ -62,11 +62,11 @@ _SMEM_LIMIT = 232_448  # dynamic shared memory one H100 block may use
 _POS_BITS = 7  # kernel D: sub-block position within a super
 _POS_MASK = (1 << _POS_BITS) - 1  # 127
 _SHIFT = 2.0  # kernel D: score -> strictly positive float, bits monotonic
-_SUPER_COLS = _TURBO_UNIT  # docs per super (the reference's name)
 _I4_SCALE_DEFAULT = 32.0  # int4 corpus: clip at |x| = 8 / 32 = 0.25
 _I4_SUPER_B = _SUPER // 2  # byte sub-tiles (of 128 byte rows) per super
 _I4_DIM_LIMIT = 8_000  # D below it keeps dot * 128 + _I8_FLAG128 in (0, 2**31)
 _INT32_MIN = -(2**31)
+_TWIN_CHUNK_SUPERS = 8  # supers per product in the plain twins of D and E
 
 
 def _round_up(x: int, m: int) -> int:
@@ -99,11 +99,6 @@ def pad_corpus_rows(corpus: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def pad_corpus_i8(corpus: torch.Tensor) -> torch.Tensor:
-    """:func:`pad_corpus_rows` of kernel A's int8 corpus."""
-    return pad_corpus_rows(corpus)
-
-
 def _pack_pairs(x4: torch.Tensor) -> torch.Tensor:
     """(2M, D) int4-valued int8 rows -> (M, D) bytes: byte row r holds row
     2r in its low nibble and row 2r + 1 in its high nibble."""
@@ -121,7 +116,8 @@ def pack_corpus_i4(x4: torch.Tensor) -> torch.Tensor:
 
 def _row_stride(row_bytes: int) -> int:
     """Bytes per staged query row in kernels A, D and E (``row_stride`` in
-    ``csrc/turbo_common.cuh``): whole 64-byte chunks, = 64 (mod 128)."""
+    ``csrc/i8_top2g.cu`` and ``csrc/turbo_common.cuh``): whole 64-byte
+    chunks, = 64 (mod 128)."""
     d64 = _round_up(row_bytes, 64)
     return d64 if d64 % 128 == 64 else d64 + 64
 
@@ -287,7 +283,7 @@ def dense_topk_fast_i8_grouped(
     n_docs = n_stored if n_docs is None else n_docs
     b = queries.shape[0]
     if n_stored % _TURBO_UNIT or n_stored < _TURBO_UNIT:
-        corpus = pad_corpus_i8(corpus)
+        corpus = pad_corpus_rows(corpus)
     queries = _pad_query_rows(queries, _I8_QUERY_TILE)
     n_super = corpus.shape[0] // _TURBO_UNIT
     ng = -(-n_super // group)
@@ -373,8 +369,6 @@ def _finish(vals, ids, valid, b, k_req):
 def fast_cells_plain(
     queries: torch.Tensor,  # (B_pad, D) f32 or bf16, B_pad a multiple of 32
     corpus: torch.Tensor,  # (N_pad, D) same dtype, N_pad a multiple of 16,384
-    *,
-    chunk_supers: int = 8,
 ) -> torch.Tensor:
     """Plain twin of kernel D. Returns (B_pad, n_super * 128) int32: column
     s * 128 + lane holds the max over pos in [0, 128) of
@@ -391,8 +385,8 @@ def fast_cells_plain(
     qf = queries.float()
     out = torch.empty((b_pad, n_super * 128), dtype=torch.int32, device=dev)
     pos = torch.arange(_SUPER, dtype=torch.int32, device=dev)[None, None, :, None]
-    for lo in range(0, n_super, chunk_supers):
-        hi = min(lo + chunk_supers, n_super)
+    for lo in range(0, n_super, _TWIN_CHUNK_SUPERS):
+        hi = min(lo + _TWIN_CHUNK_SUPERS, n_super)
         docs = corpus[lo * _TURBO_UNIT : hi * _TURBO_UNIT].float()
         bits = (qf @ docs.T + _SHIFT).view(torch.int32)
         keys = (bits.view(b_pad, hi - lo, _SUPER, 128) & ~_POS_MASK) | pos
@@ -446,15 +440,16 @@ def dense_topk_fast(
     the true ``n_docs``: unpadded rows pay a corpus copy per call.
     ``block_c`` (a multiple of 128 dividing 16,384) is validated as the
     reference does; the cells do not depend on it."""
-    if block_c % 128 or _SUPER_COLS % block_c:
+    # _TURBO_UNIT is the reference's _SUPER_COLS: docs per super
+    if block_c % 128 or _TURBO_UNIT % block_c:
         raise ValueError("block_c must be a multiple of 128 dividing 16384")
     n_stored = corpus.shape[0]
     n_docs = n_stored if n_docs is None else n_docs
     b = queries.shape[0]
-    if n_stored % _SUPER_COLS or n_stored < _SUPER_COLS:
+    if n_stored % _TURBO_UNIT or n_stored < _TURBO_UNIT:
         corpus = pad_corpus_rows(corpus)
     queries = _pad_query_rows(queries, _I8_QUERY_TILE)
-    n_super = corpus.shape[0] // _SUPER_COLS
+    n_super = corpus.shape[0] // _TURBO_UNIT
     k_req = k
     k = min(k, n_super * 128)
     packed = (fast_cells_plain if plain else fast_cells)(queries.contiguous(), corpus)
@@ -485,7 +480,6 @@ def i4_cells_plain(
     corpus: torch.Tensor,  # (N_pad / 2, D) packed bytes (pack_corpus_i4)
     *,
     slots: int,
-    chunk_supers: int = 8,
 ) -> torch.Tensor:
     """Plain twin of kernels E1 (``slots=1``) and E2 (``slots=2``). Returns
     (B_pad, slots * n_super * 128) int32: column s * 128 + lane of slot j's
@@ -506,8 +500,8 @@ def i4_cells_plain(
     out = torch.empty((b_pad, slots * half), dtype=torch.int32, device=dev)
     pos = (_I8_FLAG128 + torch.arange(_SUPER, dtype=torch.int32, device=dev))
     pos = pos[None, None, :, None]
-    for lo in range(0, n_super, chunk_supers):
-        hi = min(lo + chunk_supers, n_super)
+    for lo in range(0, n_super, _TWIN_CHUNK_SUPERS):
+        hi = min(lo + _TWIN_CHUNK_SUPERS, n_super)
         v = corpus[lo * unit_b : hi * unit_b].to(torch.int32)
         # sign-extended nibbles (the reference's (v << 28) >> 28, (v << 24) >> 28)
         nibbles = (((v & 15) ^ 8) - 8, v >> 4)

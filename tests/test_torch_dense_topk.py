@@ -125,7 +125,7 @@ def _i8_both(e8, q8, k, block_c, group):
         block_c=block_c, n_docs=N_A, interpret=True, group=group,
     )
     tv, ti = T.dense_topk_fast_i8_grouped(
-        T.pad_corpus_i8(torch.from_numpy(e8)), torch.from_numpy(q8), k=k,
+        T.pad_corpus_rows(torch.from_numpy(e8)), torch.from_numpy(q8), k=k,
         block_c=block_c, n_docs=N_A, group=group,
     )
     return (np.asarray(jv), np.asarray(ji)), (tv.numpy(), ti.numpy())
@@ -169,7 +169,7 @@ def test_kernel_a_cells_contract():
     q8 = torch.from_numpy(J.quantize_int8(
         rng.standard_normal((32, 64)).astype(np.float32) / 8.0
     ))
-    corpus = T.pad_corpus_i8(e8)
+    corpus = T.pad_corpus_rows(e8)
     k1, k2, s1, s2 = T.i8_top2g_cells_plain(q8, corpus, group=2, sub=64)
     assert k1.shape == (32, 2 * 128) and k1.dtype == torch.int32
     assert (k1 >= k2).all() and (k2 > T._I8_FLAG128 - 2**21).all()

@@ -2,8 +2,10 @@
 never falls back when its CUDA kernels cannot be built."""
 
 import os
+import re
 import subprocess
 import sys
+import tomllib
 from pathlib import Path
 
 import pytest
@@ -79,3 +81,24 @@ def test_library_name_follows_the_sources():
         "fused_topk.cu", "i8_top2g.cu", "turbo_f32.cu", "turbo_i4.cu"
     }
     assert {p.name for p in _kernels.headers()} == {"turbo_common.cuh"}
+
+
+def test_package_data_ships_every_included_kernel_file():
+    """Every kernel source, and every file a source includes with
+    ``#include "..."``, is matched by the package-data globs, so an
+    installed (non-editable) package can still build the kernels."""
+    with open(REPO / "pyproject.toml", "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "openintel_tpu_torch"
+        ]
+    shipped = {p for g in globs for p in PORT.glob(g)}
+    csrc = _kernels.CSRC
+    needed = set(_kernels.sources())
+    for src in sorted(needed):
+        for name in re.findall(r'^\s*#\s*include\s+"([^"]+)"', src.read_text(), re.M):
+            inc = (src.parent / name).resolve()
+            assert inc.is_file(), f"{src.name} includes missing {name}"
+            needed.add(inc)
+    assert needed and all(p.parent == csrc for p in needed)
+    assert needed <= shipped, sorted(p.name for p in needed - shipped)
+    assert set(_kernels.headers()) <= shipped
