@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's hybrid search on one NVIDIA card and check it.
 
-    python3 chip_smoke.py            # all phases (one card, ~75 s)
+    python3 chip_smoke.py            # all phases (one card, ~90 s)
     python3 chip_smoke.py --quick    # build + kernel-vs-twin checks only
     python3 chip_smoke.py --profile  # all phases, and a profile of each path
 
 Phases, one line of output each (any failed check raises, exit code != 0),
-run in the order 1, 2, 3, 6, 7 (the kernel checks; ``--quick`` stops
-there), then 4, 5, 8, 9 (the paths):
+run in the order 1, 2, 3, 6, 7, 10 (the kernel checks; ``--quick`` stops
+there), then 4, 5, 8, 9, 11 (the paths):
 
 1. environment: the card, torch and CUDA versions, the kernel build (nvcc,
    ``openintel_tpu_torch/csrc``) and the C++ query planner;
@@ -36,14 +36,26 @@ there), then 4, 5, 8, 9 (the paths):
 9. the ``kernel="int4"`` path at full width, on the same corpus: kernel E2
    per sub-batch; results equal to the plain-twin path, recall@10, per-batch
    time, E2 and E1 alone against their twin; then the public op
-   ``dense_topk_fast_i4(slots=1)`` (kernel E1) on one sub-batch.
+   ``dense_topk_fast_i4(slots=1)`` (kernel E1) on one sub-batch;
+10. kernels C1/C2 (``csrc/turbo_i8.cu``) and S (``csrc/dot_only.cu``)
+   against their plain twins: cells, ``dense_topk_fast_i8`` (slots 1 and 2,
+   k=32 and beyond capacity) and the wrapping lane sums bit-identical, on
+   random, tie-heavy and saturated operands;
+11. the candidate-pass measurement path at full width, on phase 4's corpus
+   and queries: the cores of the three tools in
+   ``openintel_tpu_torch/tools`` (kernel S, C1, C2 and A per sub-batch),
+   ``dense_topk_fast_i8`` against its plain path, recall@10 after rescore
+   of the per-super pass against the grouped kernel A's, and C2, C1 and S
+   alone against their twins.
 
 Each path runs in its own counted window: the kernel launch counts are
 zeroed just before it and read just after, and each kernel of the path
 must have launched. The line before the last is a JSON object with each
-kernel's launches (from its window), error and time beside its twin's; the
-last line is ``{"ok": true, "device": {...}}``. Without a CUDA device the
-script exits non-zero and prints no result.
+kernel's launches (from its window), error and time beside its twin's and
+its bound (the larger of its bytes over the memory rate and its operations
+over the peak rate of their type); the last line is ``{"ok": true,
+"device": {...}}``. Without a CUDA device the script exits non-zero and
+prints no result.
 
 With ``--profile``, phases 4, 8 and 9 each add a ``profile`` line:
 ``torch.profiler`` over 3 runs of the path's sub-batches gives the device
@@ -66,18 +78,19 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
-from openintel_tpu import native
-from openintel_tpu.index.synthetic import (
+from openintel_tpu_torch import convert, native
+from openintel_tpu_torch.index.schema import DenseIndex
+from openintel_tpu_torch.index.synthetic import (
     synthetic_postings_index,
     synthetic_queries_from_docs,
     synthetic_token_corpus,
 )
-from openintel_tpu_torch import convert
 from openintel_tpu_torch.models.retrievers import HybridRetriever, dense_arm_topk
 from openintel_tpu_torch.ops import _kernels
 from openintel_tpu_torch.ops import dense_topk as T
 from openintel_tpu_torch.ops.bm25 import bm25_topk_device, encode_query
 from openintel_tpu_torch.ops.dense import dense_topk_xla, require_true_f32
+from openintel_tpu_torch.tools import common, grouped_ab, kernel_decomp, topk_reduce_ab
 
 N_DOCS = 1_250_000  # bench.py's per-chip shard of the 10M-doc corpus
 DIM = 384
@@ -91,10 +104,49 @@ ATOL = 2e-6  # kernel B scores against its twin
 STEP = 2.0**-15  # kernel D: one score step (2**-16 for s + 2 in [1, 2))
 RECALL_FLOOR = 0.95  # the int8 and int4 paths against the exact path
 FAST_RECALL_FLOOR = 0.979  # kernel="fast": first card run (0.9992) less 0.02; PERF.md
+RECALL_SLACK = 0.01  # phase 11: per-super recall may trail the grouped kernel's by this
+MEASURE_NB, MEASURE_REPS, MEASURE_SAMPLE = 4, 3, 512  # phase 11's tool settings
+# An H100 SXM's published peaks (NVIDIA's data sheet, dense, at 700 W): device
+# memory, and operations per second by operand type (int8 and bf16 on the
+# tensor cores, float32 FMA outside them)
+HBM_BYTES_PER_S = 3.35e12
+# A yardstick beside the kernels, used nowhere in the port: one library call
+# for the (B, N) product alone, written out; not the kernels' function
+PRODUCT_NOTE = "product alone, not the same function:"
+PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def bound(inputs, outputs, ops: float, kind: str) -> dict:
+    """The least time the card could take for a kernel's work: each input
+    read once and each output written once at the memory rate, or its
+    operations at the peak rate of their type, whichever is longer."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    mem_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {
+        "bound_ms": max(mem_ms, ops_ms),
+        "bound_by": "bytes" if mem_ms >= ops_ms else "operations",
+    }
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, limit) -> dict:
+    """One kernel's record for the ``kernels`` line. No single PyTorch call
+    computes any of these kernels' functions (packed top-k folds, a fused
+    top-k, per-lane dot sums), so ``library_ms`` is null for each."""
+    return {
+        "name": name, "route": "cuda", "source": f"openintel_tpu_torch/csrc/{source}",
+        "replaces": replaces, "launches": launches, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, **limit, "library_ms": None,
+    }
+
+
+def product_ops(queries, corpus) -> float:
+    """Multiply-adds x 2 of a (B, D) x (N, D)^T product."""
+    return 2.0 * queries.shape[0] * corpus.shape[0] * queries.shape[1]
 
 
 def near_tie_check(vals, ids, ref_vals, ref_ids, *, tie=TIE, atol=None) -> int:
@@ -411,6 +463,63 @@ def phase_kernel_e() -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: kernels C1/C2 and S against their plain twins
+# ---------------------------------------------------------------------------
+
+
+def phase_kernel_c_s() -> None:
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    n_super = 17  # phase 2's shape family: the last super short
+    n = (n_super - 1) * T._TURBO_UNIT + 5_000
+    b = 45  # pads to 64 queries
+    emb = torch.from_numpy(unit_rows(rng, n, DIM)).to(dev)
+    operands = {
+        "random": (convert.int8_corpus(emb), T.quantize_int8(torch.from_numpy(unit_rows(rng, b, DIM)))),
+        "tie-heavy": (  # entries in {-1, 0, 1}: equal dots are common
+            torch.from_numpy(rng.integers(-1, 2, (n, DIM)).astype(np.int8)),
+            torch.from_numpy(rng.integers(-1, 2, (b, DIM)).astype(np.int8)),
+        ),
+        "saturated": (  # every entry 127: kernel S's lane sums wrap mod 2**32
+            torch.full((n, DIM), 127, dtype=torch.int8),
+            torch.full((b, DIM), 127, dtype=torch.int8),
+        ),
+    }
+    cases, wrapped = 0, 0
+    for name, (crp, q) in operands.items():
+        crp, q = T.pad_corpus_rows(crp.to(dev)), q.to(dev)
+        q_pad = torch.cat([q, q.new_zeros((64 - b, DIM))])
+        for slots in (1, 2):
+            got = T.i8_turbo_cells(q_pad, crp, slots=slots)
+            want = T.i8_turbo_cells_plain(q_pad, crp, slots=slots)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"kernel C{slots} cells differ ({name}): {int((got != want).sum())} cells"
+                )
+            for k in (C_ARM, n_super * 128 * slots + 7):  # the second clamps and pads
+                kv, ki = T.dense_topk_fast_i8(crp, q, k=k, n_docs=n, slots=slots)
+                pv, pi = T.dense_topk_fast_i8(crp, q, k=k, n_docs=n, slots=slots, plain=True)
+                assert torch.equal(ki, pi) and torch.equal(kv, pv), (name, slots, k)
+                assert int(ki.max()) < n
+            cases += 1
+        got, want = T.dot_only(crp, q), T.dot_only(crp, q, plain=True)
+        if not torch.equal(got, want):
+            raise AssertionError(f"kernel S differs ({name}): {int((got != want).sum())} sums")
+        exact = (q.double() @ crp.double().T).view(b, -1, 128).sum(dim=1)
+        wrapped += int((exact != got.double()).sum())
+        cases += 1
+    torch.cuda.synchronize()
+    if not wrapped:
+        raise AssertionError("kernel S: no lane sum wrapped; the wrap case is not covered")
+    log(
+        f"phase10 kernels C1/C2 and S: {cases} cases (slots 1/2, random, tie-heavy "
+        f"and saturated, N={n}, B={b}, D={DIM}) cells, dense_topk_fast_i8 (k "
+        f"{C_ARM}, capacity+7) and lane sums ({wrapped} wrapped) bit-identical to "
+        "the twins"
+    )
+
+
+# ---------------------------------------------------------------------------
 # Phases 4, 5, 8, 9: the paths
 # ---------------------------------------------------------------------------
 
@@ -425,7 +534,7 @@ def build_corpus():
     rng = np.random.default_rng(1)
     emb = rng.standard_normal((N_DOCS, DIM), dtype=np.float32)
     emb /= np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-12)
-    dense = convert.dense_index(emb, dtype=torch.bfloat16)
+    dense = DenseIndex.from_embeddings(emb, dtype=torch.bfloat16)
     total = BATCH * N_BATCHES
     ranks = np.exp(
         rng.uniform(np.log(50), np.log(VOCAB - 1), size=(total, 4))
@@ -627,17 +736,16 @@ def phase_int8_path(corpus, card, profile: bool) -> dict:
         raise AssertionError(f"kernel A differs from its twin by {a_err}")
     a_ms = cuda_ms(lambda: T.i8_top2g_cells(q8, emb, group=group, sub=sub), 10)
     a_plain_ms = cuda_ms(lambda: T.i8_top2g_cells_plain(q8, emb, group=group, sub=sub), 3)
+    limit = bound((q8, emb), got, product_ops(q8, emb), "int8")
     log(
         f"kernel A at B={BATCH}, N={N_DOCS}, D={DIM}, group={group}: "
-        f"{a_ms:.3f} ms vs twin {a_plain_ms:.3f} ms [{card}]"
+        f"{a_ms:.3f} ms vs twin {a_plain_ms:.3f} ms, bound {limit['bound_ms']:.4f} "
+        f"ms ({limit['bound_by']}) [{card}]"
     )
-    return {
-        "name": "i8_top2g", "route": "cuda",
-        "source": "openintel_tpu_torch/csrc/i8_top2g.cu",
-        "replaces": "openintel_tpu/ops/pallas/dense_topk.py:591",
-        "launches": counts["i8_top2g"], "max_abs_err": a_err,
-        "ms": a_ms, "plain_ms": a_plain_ms,
-    }
+    return kernel_entry(
+        "i8_top2g", "i8_top2g.cu", "openintel_tpu/ops/pallas/dense_topk.py:591",
+        counts["i8_top2g"], a_err, a_ms, a_plain_ms, limit,
+    )
 
 
 def phase_text(card) -> dict:
@@ -665,19 +773,20 @@ def phase_text(card) -> dict:
     near_tie_check(bv.cpu(), bi.cpu(), pv.cpu(), pi.cpu(), atol=ATOL)
     b_ms = cuda_ms(lambda: T.fused_topk(rows, qd, K), 20)
     b_plain_ms = cuda_ms(lambda: T.fused_topk_plain(rows, qd, K), 20)
+    limit = bound((qd, rows), (bv, bi), product_ops(qd, rows), "f32")
+    product = cuda_ms(lambda: torch.matmul(qd, rows.T), 20)
     log(
         f"phase5 text: {len(docs)} docs, {len(text_queries)} queries, kernel "
         f"B launches {counts['fused_topk']}, results vs plain path near-tie swaps "
         f"{swaps5}; kernel B at B={qd.shape[0]}, N={len(docs)}, D={DIM} f32, "
-        f"k={K}: {b_ms:.3f} ms vs twin {b_plain_ms:.3f} ms [{card}]"
+        f"k={K}: {b_ms:.3f} ms vs twin {b_plain_ms:.3f} ms, bound "
+        f"{limit['bound_ms']:.4f} ms ({limit['bound_by']}); {PRODUCT_NOTE} "
+        f"torch.matmul {product:.3f} ms [{card}]"
     )
-    return {
-        "name": "fused_topk", "route": "cuda",
-        "source": "openintel_tpu_torch/csrc/fused_topk.cu",
-        "replaces": "openintel_tpu/ops/pallas/dense_topk.py:62",
-        "launches": counts["fused_topk"], "max_abs_err": b_err,
-        "ms": b_ms, "plain_ms": b_plain_ms,
-    }
+    return kernel_entry(
+        "fused_topk", "fused_topk.cu", "openintel_tpu/ops/pallas/dense_topk.py:62",
+        counts["fused_topk"], b_err, b_ms, b_plain_ms, limit,
+    )
 
 
 def dense_arms(retr, prep, plain: bool):
@@ -739,17 +848,18 @@ def phase_fast_path(corpus, card, profile: bool) -> dict:
         raise AssertionError(f"kernel D differs from its twin by {d_err:.3g}")
     d_ms = cuda_ms(lambda: T.fast_cells(q, emb), 10)
     d_plain_ms = cuda_ms(lambda: T.fast_cells_plain(q, emb), 3)
+    limit = bound((q, emb), (got,), product_ops(q, emb), "bf16")
+    product = cuda_ms(lambda: torch.matmul(q, emb.T), 10)
     log(
         f"kernel D at B={BATCH}, N={N_DOCS}, D={DIM} bf16: {d_ms:.3f} ms vs twin "
-        f"{d_plain_ms:.3f} ms, max cell score error {d_err:.3g} [{card}]"
+        f"{d_plain_ms:.3f} ms, max cell score error {d_err:.3g}, bound "
+        f"{limit['bound_ms']:.4f} ms ({limit['bound_by']}); {PRODUCT_NOTE} "
+        f"torch.matmul {product:.3f} ms [{card}]"
     )
-    return {
-        "name": "turbo_f32", "route": "cuda",
-        "source": "openintel_tpu_torch/csrc/turbo_f32.cu",
-        "replaces": "openintel_tpu/ops/pallas/dense_topk.py:290",
-        "launches": counts["turbo_f32"], "max_abs_err": d_err,
-        "ms": d_ms, "plain_ms": d_plain_ms,
-    }
+    return kernel_entry(
+        "turbo_f32", "turbo_f32.cu", "openintel_tpu/ops/pallas/dense_topk.py:290",
+        counts["turbo_f32"], d_err, d_ms, d_plain_ms, limit,
+    )
 
 
 def phase_int4_path(corpus, card, profile: bool) -> list:
@@ -803,18 +913,114 @@ def phase_int4_path(corpus, card, profile: bool) -> list:
             raise AssertionError(f"kernel E{slots} differs from its twin by {err}")
         ms = cuda_ms(lambda: T.i4_cells(q8, emb, slots=slots), 10)
         plain_ms = cuda_ms(lambda: T.i4_cells_plain(q8, emb, slots=slots), 3)
+        ops = 2.0 * q8.shape[0] * 2 * emb.shape[0] * DIM  # two docs per byte row
+        limit = bound((q8, emb), (got,), ops, "int8")
         log(
             f"kernel E{slots} at B={BATCH}, N={N_DOCS}, D={DIM}: {ms:.3f} ms vs "
-            f"twin {plain_ms:.3f} ms [{card}]"
+            f"twin {plain_ms:.3f} ms, bound {limit['bound_ms']:.4f} ms "
+            f"({limit['bound_by']}) [{card}]"
         )
-        out.append({
-            "name": name, "route": "cuda",
-            "source": "openintel_tpu_torch/csrc/turbo_i4.cu",
-            "replaces": f"openintel_tpu/ops/pallas/dense_topk.py:{line}",
-            "launches": (counts if slots == 2 else e1_counts)[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-        })
+        out.append(kernel_entry(
+            name, "turbo_i4.cu", f"openintel_tpu/ops/pallas/dense_topk.py:{line}",
+            (counts if slots == 2 else e1_counts)[name], err, ms, plain_ms, limit,
+        ))
     log(f"phase9 E1 op: dense_topk_fast_i4(slots=1) at k={cw} equals its twin")
+    return out
+
+
+def phase_measurement(corpus, card) -> list:
+    """Phase 11: the candidate-pass measurement tools at full width on phase
+    4's corpus and queries (the stored bf16 rows, their int8 corpus), with
+    kernels C1, C2, S and A in one counted window."""
+    dev = torch.device("cuda")
+    _, dense, _, q = corpus
+    rows = convert.stored_rows(dense, dev)
+    i8 = convert.int8_corpus(rows)
+    qfs = torch.from_numpy(q).to(dev).view(MEASURE_NB, -1, DIM)
+    q8s = T.quantize_int8(qfs)
+    ref_ids = common.exact_ids(rows, qfs.view(-1, DIM)[:MEASURE_SAMPLE])
+    group = T.auto_i8_group(N_DOCS, C_ARM)
+
+    def measure():
+        return (
+            kernel_decomp.decompose(i8, q8s, N_DOCS, reps=MEASURE_REPS),
+            topk_reduce_ab.reduce_ab(i8, rows, q8s, qfs, N_DOCS, ref_ids, reps=MEASURE_REPS),
+            grouped_ab.grouped_ab(
+                i8, rows, q8s, qfs, N_DOCS, ref_ids, groups=[group], reps=MEASURE_REPS
+            ),
+        )
+
+    t0 = time.perf_counter()
+    (decomp, reduce, grouped), counts = counted(measure)
+    runs = (MEASURE_REPS + 1) * MEASURE_NB  # each row: a warm-up rep, then the reps
+    n_reducers = len(topk_reduce_ab.reducers(i8.shape[0] // T._TURBO_UNIT))
+    expect_launches(
+        counts, dot_only=runs, turbo_i8=runs,
+        turbo_i8_top2=runs * (2 + n_reducers + 1), i8_top2g=runs,
+    )
+    log(
+        f"phase11 measurement tools at N={N_DOCS}, D={DIM}, {MEASURE_NB} x {BATCH} "
+        f"queries, {MEASURE_REPS} reps, recall over {MEASURE_SAMPLE} queries "
+        f"({time.perf_counter() - t0:.1f}s); {common.clock_note(dev, MEASURE_REPS, MEASURE_NB)} [{card}]"
+    )
+    for name, rows_ in (("kernel_decomp", decomp), ("topk_reduce_ab", reduce), ("grouped_ab", grouped)):
+        for row in rows_:
+            log(f"  {name}: {common.row_line(row)}")
+
+    # one sub-batch: the op against its plain path, no id past the corpus
+    q8 = q8s[0]
+    for slots in (1, 2):
+        kv, ki = T.dense_topk_fast_i8(i8, q8, k=C_ARM, n_docs=N_DOCS, slots=slots)
+        pv, pi = T.dense_topk_fast_i8(i8, q8, k=C_ARM, n_docs=N_DOCS, slots=slots, plain=True)
+        if not (torch.equal(ki, pi) and torch.equal(kv, pv)):
+            raise AssertionError(f"dense_topk_fast_i8(slots={slots}) differs from its plain path")
+        if int(ki.max()) >= N_DOCS:
+            raise AssertionError(f"dense_topk_fast_i8(slots={slots}) leaked a padding id")
+    per_super = next(r["recall"] for r in grouped if r["group"] == 0)
+    grouped_a = next(r["recall"] for r in grouped if r["group"] == group)
+    log(
+        f"phase11 checks: dense_topk_fast_i8 slots 1/2 equal to the plain path, "
+        f"ids < n_docs; recall@{K} after rescore per-super slots=2 {per_super:.4f}, "
+        f"grouped kernel A g={group} {grouped_a:.4f}"
+    )
+    if per_super < grouped_a - RECALL_SLACK:
+        raise AssertionError(
+            f"per-super recall {per_super:.4f} < grouped {grouped_a:.4f} - {RECALL_SLACK}"
+        )
+
+    # kernels C2, C1 and S alone at the main shapes
+    product = cuda_ms(lambda: torch._int_mm(q8, i8.t()), 10)
+    log(
+        f"kernels A, C1, C2, S (and E's int8 equivalent) at B={BATCH}, "
+        f"N={N_DOCS}, D={DIM} int8: {PRODUCT_NOTE} torch._int_mm "
+        f"{product:.3f} ms [{card}]"
+    )
+    out = []
+    line = "openintel_tpu/ops/pallas/dense_topk.py"
+    probes = (
+        ("turbo_i8_top2", "turbo_i8.cu", f"{line}:535", "C2",
+         lambda: T.i8_turbo_cells(q8, i8, slots=2),
+         lambda: T.i8_turbo_cells_plain(q8, i8, slots=2)),
+        ("turbo_i8", "turbo_i8.cu", f"{line}:507", "C1",
+         lambda: T.i8_turbo_cells(q8, i8, slots=1),
+         lambda: T.i8_turbo_cells_plain(q8, i8, slots=1)),
+        ("dot_only", "dot_only.cu", "scripts/bench_kernel_decomp.py:99", "S",
+         lambda: T.dot_only_cells(q8, i8), lambda: T.dot_only_plain(q8, i8)),
+    )
+    for name, source, replaces, label, kernel, plain in probes:
+        got, want = kernel(), plain()
+        err = int((got.long() - want.long()).abs().max())
+        if err:
+            raise AssertionError(f"kernel {label} differs from its twin by {err}")
+        ms = cuda_ms(kernel, 10)
+        plain_ms = cuda_ms(plain, 3)
+        limit = bound((q8, i8), (got,), product_ops(q8, i8), "int8")
+        log(
+            f"kernel {label} at B={BATCH}, N={N_DOCS}, D={DIM}: {ms:.3f} ms vs twin "
+            f"{plain_ms:.3f} ms, bound {limit['bound_ms']:.4f} ms "
+            f"({limit['bound_by']}) [{card}]"
+        )
+        out.append(kernel_entry(name, source, replaces, counts[name], err, ms, plain_ms, limit))
     return out
 
 
@@ -825,8 +1031,9 @@ def run(quick: bool, profile: bool) -> None:
     phase_kernel_b()
     phase_kernel_d()
     phase_kernel_e()
+    phase_kernel_c_s()
     if quick:
-        log("quick run: the paths (phases 4, 5, 8, 9) skipped")
+        log("quick run: the paths (phases 4, 5, 8, 9, 11) skipped")
         return
 
     corpus = build_corpus()
@@ -838,10 +1045,19 @@ def run(quick: bool, profile: bool) -> None:
     free_device()
     kernels += phase_int4_path(corpus, card, profile)
     free_device()
+    kernels += phase_measurement(corpus, card)
+    free_device()
 
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
-    order = ["i8_top2g", "fused_topk", "turbo_f32", "turbo_i4", "turbo_i4_top2"]
+    leaked = sorted(
+        m for m in sys.modules
+        if m.split(".")[0] in ("jax", "openintel_tpu")
+    )
+    if leaked:
+        raise AssertionError(f"the port imported {leaked[:5]}")
+    order = [
+        "i8_top2g", "fused_topk", "turbo_f32", "turbo_i4", "turbo_i4_top2",
+        "turbo_i8", "turbo_i8_top2", "dot_only",
+    ]
     kernels.sort(key=lambda e: order.index(e["name"]))
     log(json.dumps({"kernels": kernels}))
 

@@ -1,8 +1,12 @@
-"""Carry the reference package's index state across to the port's tensors.
+"""Carry index state across to the port's classes and tensors.
 
-``PostingsIndex`` stays on the host as it is (the planner reads it).
-``DenseIndex.embeddings`` (float32, or ``ml_dtypes`` bfloat16 as the JAX
-package stores it) becomes the port's device tensors:
+An index built by the JAX package comes across by its arrays alone:
+:func:`postings_index` and :func:`dense_index_from` read its attributes and
+give the port's own ``PostingsIndex`` and ``DenseIndex``
+(:mod:`openintel_tpu_torch.index.schema`), without importing the JAX
+package. A ``DenseIndex``'s rows (float32, or bfloat16: a torch tensor, or
+``ml_dtypes`` bf16 as the JAX package stores them) become the port's device
+tensors:
 
 - the stored rows (f32, or bf16 read through a 16-bit view, so no
   ``ml_dtypes`` is needed);
@@ -13,10 +17,6 @@ package stores it) becomes the port's device tensors:
   and kernel E's nibble-packed int4 rows (:func:`int4_corpus`), all
   row-major;
 - the rescore rows, which are the stored rows.
-
-:func:`dense_index` is the port's ``DenseIndex.from_embeddings``: it makes
-bf16 rows with torch (round to nearest even, as ``ml_dtypes``) and holds
-them in a ``DenseIndex`` as a CPU tensor.
 """
 
 from __future__ import annotations
@@ -24,7 +24,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from openintel_tpu.index.schema import DenseIndex
+from openintel_tpu_torch.index.schema import (
+    BM25Config,
+    DenseIndex,
+    PostingsIndex,
+)
 from openintel_tpu_torch.ops.dense_topk import (
     _TURBO_UNIT,
     _pack_pairs,
@@ -33,6 +37,7 @@ from openintel_tpu_torch.ops.dense_topk import (
     quantize_int4,
     quantize_int8,
 )
+from openintel_tpu_torch.ops.tokenizer import Vocab
 
 
 def stored_rows(index: DenseIndex, device) -> torch.Tensor:
@@ -91,10 +96,31 @@ def int4_corpus(rows: torch.Tensor, chunk: int = 1 << 16) -> torch.Tensor:
     return out
 
 
-def dense_index(raw: np.ndarray, *, dtype=torch.float32) -> DenseIndex:
-    """``DenseIndex.from_embeddings`` for the port: the reference's float32
-    normalisation, rows stored as a CPU tensor of ``dtype`` (torch.float32
-    or torch.bfloat16)."""
-    f32 = DenseIndex.from_embeddings(raw)
-    rows = torch.from_numpy(f32.embeddings).to(dtype)
-    return DenseIndex(embeddings=rows, n_docs=f32.n_docs, dim=f32.dim)
+def postings_index(src) -> PostingsIndex:
+    """The port's ``PostingsIndex`` holding the arrays of ``src``, a
+    postings index built elsewhere (the JAX package's, or the port's own):
+    the same numpy arrays, vocabulary and BM25 constants, read by
+    attribute."""
+    return PostingsIndex(
+        term_offsets=src.term_offsets,
+        doc_ids=src.doc_ids,
+        tf=src.tf,
+        impact=src.impact,
+        df=src.df,
+        idf=src.idf,
+        doc_len=src.doc_len,
+        avgdl=float(src.avgdl),
+        n_docs=int(src.n_docs),
+        vocab=Vocab(token_to_id=dict(src.vocab.token_to_id)),
+        config=BM25Config(k1=src.config.k1, b=src.config.b),
+        impact_order=src.impact_order,
+    )
+
+
+def dense_index_from(src) -> DenseIndex:
+    """The port's ``DenseIndex`` holding the rows of ``src``, a dense index
+    built elsewhere: the same rows (``ml_dtypes`` bf16 stays as it is, read
+    through a 16-bit view by :func:`stored_rows`), read by attribute."""
+    return DenseIndex(
+        embeddings=src.embeddings, n_docs=int(src.n_docs), dim=int(src.dim)
+    )

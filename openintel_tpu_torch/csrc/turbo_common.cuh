@@ -1,5 +1,6 @@
-// Shared pieces of the candidate-cell kernels D (turbo_f32.cu) and E1/E2
-// (turbo_i4.cu). Kernel A (i8_top2g.cu) walks its corpus the same way with
+// Shared pieces of the candidate-cell kernels C1/C2 (turbo_i8.cu), D
+// (turbo_f32.cu) and E1/E2 (turbo_i4.cu), and of kernel S (dot_only.cu).
+// Kernel A (i8_top2g.cu) walks its corpus the same way with
 // its own copy of this loop: on stream_docs it ran 3 % slower at the main
 // path's shapes, timed alternately against its own loop on an H100
 // (PERF.md), so it keeps its own.

@@ -1,7 +1,7 @@
 """Deterministic hashed random-projection text embedder.
 
-A copy of ``openintel_tpu.models.embedding`` (whose package imports jax),
-held equal to it in tests/test_torch_retriever.py.
+The port's copy of the reference's ``models.embedding``, held equal to it
+in tests/test_torch_retriever.py.
 
 Gives the framework a self-contained dense arm with zero external model
 dependencies: each token hashes to a seed that generates a pseudo-random
@@ -18,7 +18,7 @@ from typing import Sequence
 
 import numpy as np
 
-from openintel_tpu.ops.tokenizer import tokenize_batch
+from openintel_tpu_torch.ops.tokenizer import tokenize_batch
 
 DEFAULT_DIM = 384
 

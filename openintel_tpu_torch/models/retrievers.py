@@ -1,6 +1,6 @@
 """Retriever families of the port: BM25, dense cosine, and the hybrid.
 
-Port of :mod:`openintel_tpu.models.retrievers` (unfiltered). The retrievers
+Port of the reference's ``models.retrievers`` (unfiltered). The retrievers
 own the index tensors on one device, encode queries and run the hybrid
 step per query sub-batch: host BM25 plan, dense candidates (kernel A plus
 exact rescore at 100k docs and more, kernel B below that; opt-in, kernel D
@@ -21,9 +21,9 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from openintel_tpu.index.build import build_postings_index
-from openintel_tpu.index.schema import BM25Config, DenseIndex, PostingsIndex
 from openintel_tpu_torch import convert, default_device
+from openintel_tpu_torch.index.build import build_postings_index
+from openintel_tpu_torch.index.schema import BM25Config, DenseIndex, PostingsIndex
 from openintel_tpu_torch.models.embedding import HashingEmbedder
 from openintel_tpu_torch.ops.bm25 import (
     bm25_topk_device,
@@ -131,8 +131,8 @@ def dense_arm_topk(
 
 def auto_prune_m(n_docs: int, k: int) -> Optional[int]:
     """Default impact-pruning budget for serving: M = max(128, k) above
-    AUTO_PRUNE_DOCS (keeps pruned top-k exact, see
-    ``openintel_tpu.models.retrievers.auto_prune_m``), none below."""
+    AUTO_PRUNE_DOCS (keeps pruned top-k exact, as the reference's
+    ``auto_prune_m`` argues), none below."""
     return max(128, k) if n_docs > AUTO_PRUNE_DOCS else None
 
 
@@ -244,7 +244,7 @@ class DenseRetriever:
         device=None,
     ):
         embedder = embedder or HashingEmbedder(dim=dim)
-        index = convert.dense_index(embedder(list(texts)), dtype=dtype)
+        index = DenseIndex.from_embeddings(embedder(list(texts)), dtype=dtype)
         return cls(index, embedder, kernel=kernel, device=device)
 
     @property
@@ -350,7 +350,7 @@ class HybridRetriever:
     ):
         embedder = embedder or HashingEmbedder(dim=dim)
         postings = build_postings_index(texts, config=config)
-        dense = convert.dense_index(embedder(list(texts)), dtype=dtype)
+        dense = DenseIndex.from_embeddings(embedder(list(texts)), dtype=dtype)
         return cls(
             postings, dense, embedder, rrf_k=rrf_k, fusion=fusion,
             blend_alpha=blend_alpha, use_pallas=use_pallas,

@@ -48,6 +48,10 @@ _SIGNATURES = {
     "oi_turbo_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     # q, packed corpus, out, slots, b_pad, dim, n_super, stream
     "oi_turbo_i4": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # q, corpus, out, slots, b_pad, dim, n_super, stream
+    "oi_turbo_i8": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # q, corpus, out, b_pad, dim, n_super, stream
+    "oi_dot_only": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -1,10 +1,10 @@
 """BM25: host query plan, device segmented sum and top-k.
 
-Port of :mod:`openintel_tpu.ops.bm25`. The host half (``QueryPlan``,
-``_bucket``, ``encode_query``, ``build_query_plan``) is a copy, because the
-original module imports jax; it still plans through the shared C++ planner
-(``openintel_tpu.native.native_build_query_plan``) when that is built, and
-through the NumPy reference otherwise. The device half,
+Port of the reference's ``ops.bm25``. The host half (``QueryPlan``,
+``_bucket``, ``encode_query``, ``build_query_plan``) is a copy; it plans
+through the port's copy of the C++ planner
+(:func:`openintel_tpu_torch.native.native_build_query_plan`) when that is
+built, and through the NumPy path otherwise. The device half,
 ``bm25_topk_device``, keeps the presorted-plan contract and the bounded
 Hillis-Steele segmented sum in the same order of adds as the JAX program,
 so its sums are bit-identical.
@@ -22,8 +22,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from openintel_tpu.index.schema import PostingsIndex
-from openintel_tpu.ops.tokenizer import tokenize
+from openintel_tpu_torch.index.schema import PostingsIndex
+from openintel_tpu_torch.ops.tokenizer import tokenize
 from openintel_tpu_torch.ops.ranking import stable_topk
 
 NEG_INF = float("-inf")
@@ -74,7 +74,7 @@ def build_query_plan(
 ) -> QueryPlan:
     """Assemble the padded (doc_id, weight) plan for a batch of queries.
 
-    Same contract as ``openintel_tpu.ops.bm25.build_query_plan`` (which
+    Same contract as the reference's ``ops.bm25.build_query_plan`` (which
     documents the pruning-exactness argument): ``max_postings_per_term``
     keeps each term's top-M postings by impact, ``include_multi_term``
     forces the top ``multi_budget`` multi-term docs by true score,
@@ -108,7 +108,7 @@ def build_query_plan(
         return index.doc_ids[sel], index.impact[sel]
 
     if use_native and sort and max_postings_per_term is not None:
-        from openintel_tpu import native
+        from openintel_tpu_torch import native
 
         res = native.native_build_query_plan(
             index,

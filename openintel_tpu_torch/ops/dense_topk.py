@@ -13,27 +13,35 @@ Counterparts of :mod:`openintel_tpu.ops.pallas.dense_topk`:
 - kernels E1/E2, ``csrc/turbo_i4.cu`` (replace ``_turbo_kernel_i4`` and
   ``_turbo_kernel_i4_top2``): the int4 candidate cells of
   :func:`dense_topk_fast_i4` (``kernel="int4"`` runs E2);
+- kernels C1/C2, ``csrc/turbo_i8.cu`` (replace ``_turbo_kernel_i8`` and
+  ``_turbo_kernel_i8_top2``): the per-super int8 candidate cells of
+  :func:`dense_topk_fast_i8`, which the candidate-pass measurement tools
+  (``openintel_tpu_torch.tools``) run;
+- kernel S, ``csrc/dot_only.cu`` (replaces ``_dot_only_kernel`` of
+  ``scripts/bench_kernel_decomp.py``): :func:`dot_only`, the int8
+  stream-floor probe;
 - :func:`exact_rescore`, :func:`quantize_int8`, :func:`quantize_int4`,
   :func:`auto_i8_group` and the key constants, as torch ops.
 
 Each kernel has a wrapper (:func:`i8_top2g_cells`, :func:`fused_topk`,
-:func:`fast_cells`, :func:`i4_cells`) and a plain twin of the same function
+:func:`fast_cells`, :func:`i4_cells`, :func:`i8_turbo_cells`,
+:func:`dot_only_cells`) and a plain twin of the same function
 (``*_plain``). A wrapper given CPU tensors runs the twin; given CUDA
 tensors it launches the kernel or raises. Each wrapper counts its launches
 in its ``launches`` attribute.
 
 Layout: the candidate corpora are row-major, zero-padded to a multiple of
 16,384 docs once at load (the JAX package streams the transposed
-``(D, N_pad)`` copies its TPU kernels want): ``(N_pad, D)`` int8 for kernel
-A, ``(N_pad, D)`` f32/bf16 rows for kernel D, and ``(N_pad / 2, D)`` bytes
-for kernels E, byte row r holding docs 2r (low nibble) and 2r + 1 (high
-nibble). The int8/int4 cells are integer-exact, so the port's candidates
-equal the reference's bit for bit. Kernel D's keys hold the f32 bits of
-each dot, so they are bit-exact only where the sum is exact in any order
-(dyadic operands); elsewhere a cell may move by one score quantum (2**-16
-for s + 2 in [1, 2), 2**-15 in [2, 4)).
+``(D, N_pad)`` copies its TPU kernels want): ``(N_pad, D)`` int8 for
+kernels A, C and S, ``(N_pad, D)`` f32/bf16 rows for kernel D, and
+``(N_pad / 2, D)`` bytes for kernels E, byte row r holding docs 2r (low
+nibble) and 2r + 1 (high nibble). The int8/int4 cells are integer-exact,
+so the port's candidates equal the reference's bit for bit. Kernel D's
+keys hold the f32 bits of each dot, so they are bit-exact only where the
+sum is exact in any order (dyadic operands); elsewhere a cell may move by
+one score quantum (2**-16 for s + 2 in [1, 2), 2**-15 in [2, 4)).
 
-The decodes of kernels D and E run an exact top-k, ties to the lower
+The decodes of kernels C, D and E run an exact top-k, ties to the lower
 column, where the reference runs ``approx_max_k``. On a TPU the port can
 only find more candidates. On the CPU ``approx_max_k`` is exact and keeps
 the lower column too, except when it selects every column: then it sorts
@@ -56,7 +64,7 @@ _I8_FLAG128 = (_I8_BIAS + (1 << 23)) * 128  # bias + the reference's float flag,
 _I8_SCALE = 127.0 * 127.0  # int dot -> cosine
 _SUPER = 128  # sub-blocks (of 128 docs) per super
 _TURBO_UNIT = _SUPER * 128  # docs per super (16,384)
-_I8_QUERY_TILE = 32  # queries per kernel-A/D/E block; batches pad to it
+_I8_QUERY_TILE = 32  # queries per kernel-A/C/D/E/S block; batches pad to it
 _FUSED_MAX_K = 1024  # the reference kernel's k <= block_c bound
 _SMEM_LIMIT = 232_448  # dynamic shared memory one H100 block may use
 _POS_BITS = 7  # kernel D: sub-block position within a super
@@ -66,7 +74,7 @@ _I4_SCALE_DEFAULT = 32.0  # int4 corpus: clip at |x| = 8 / 32 = 0.25
 _I4_SUPER_B = _SUPER // 2  # byte sub-tiles (of 128 byte rows) per super
 _I4_DIM_LIMIT = 8_000  # D below it keeps dot * 128 + _I8_FLAG128 in (0, 2**31)
 _INT32_MIN = -(2**31)
-_TWIN_CHUNK_SUPERS = 8  # supers per product in the plain twins of D and E
+_TWIN_CHUNK_SUPERS = 8  # supers per product in the plain twins of C, D, E, S
 
 
 def _round_up(x: int, m: int) -> int:
@@ -115,7 +123,7 @@ def pack_corpus_i4(x4: torch.Tensor) -> torch.Tensor:
 
 
 def _row_stride(row_bytes: int) -> int:
-    """Bytes per staged query row in kernels A, D and E (``row_stride`` in
+    """Bytes per staged query row in kernels A, C, D, E and S (``row_stride`` in
     ``csrc/i8_top2g.cu`` and ``csrc/turbo_common.cuh``): whole 64-byte
     chunks, = 64 (mod 128)."""
     d64 = _round_up(row_bytes, 64)
@@ -359,6 +367,205 @@ def _finish(vals, ids, valid, b, k_req):
     out_vals = torch.where(valid, vals, torch.zeros_like(vals))[:b]
     out_ids = torch.where(valid, ids, torch.full_like(ids, -1))[:b]
     return _pad_columns(out_vals, out_ids, k_req)
+
+
+def _check_i8_operands(name, queries, corpus) -> int:
+    """Kernels C and S take kernel A's operands: int8 queries padded to the
+    32-query tile and the row-major (N_pad, D) int8 corpus. Returns
+    n_super."""
+    if queries.dtype != torch.int8 or corpus.dtype != torch.int8:
+        raise TypeError(f"{name} takes int8 queries and corpus")
+    n_pad = corpus.shape[0]
+    if n_pad % _TURBO_UNIT or n_pad == 0:
+        raise ValueError(f"{name}: corpus rows {n_pad} off the 16,384-doc unit")
+    _check_turbo_operands(name, queries, corpus, queries.shape[1])
+    return n_pad // _TURBO_UNIT
+
+
+# ---------------------------------------------------------------------------
+# Kernels C1/C2: int8 candidate cells, top-1 or top-2 keys per (query,
+# super, lane).
+# ---------------------------------------------------------------------------
+
+
+def i8_turbo_cells_plain(
+    queries: torch.Tensor,  # (B_pad, D) int8, B_pad a multiple of 32
+    corpus: torch.Tensor,  # (N_pad, D) int8, N_pad a multiple of 16,384
+    *,
+    slots: int,
+) -> torch.Tensor:
+    """Plain twin of kernels C1 (``slots=1``) and C2 (``slots=2``). Returns
+    (B_pad, slots * n_super * 128) int32: column s * 128 + lane of slot j's
+    half holds the j-th largest over the super's 128 keys of its lane,
+
+        key = dot * 128 + _I8_FLAG128 + pos,
+
+    for doc s * 16384 + 128 * pos + lane. All supers' slot-1 keys come
+    first, then all their slot-2 keys (the reference's ``concat(p1, p2)``).
+    A cell's keys are distinct (pos differs), so its top-2 is unique and
+    depends on neither the walk order nor ``block_c``. Zero-padded docs
+    give real keys; only the decode drops them. The dots run as a float32
+    product with TF32 off: every partial sum is an integer below 2**24."""
+    require_true_f32()
+    b_pad = queries.shape[0]
+    n_super = corpus.shape[0] // _TURBO_UNIT
+    half = n_super * 128
+    dev = queries.device
+    qf = queries.float()
+    out = torch.empty((b_pad, slots * half), dtype=torch.int32, device=dev)
+    pos = (_I8_FLAG128 + torch.arange(_SUPER, dtype=torch.int32, device=dev))
+    pos = pos[None, None, :, None]
+    for lo in range(0, n_super, _TWIN_CHUNK_SUPERS):
+        hi = min(lo + _TWIN_CHUNK_SUPERS, n_super)
+        docs = corpus[lo * _TURBO_UNIT : hi * _TURBO_UNIT].float()
+        dots = (qf @ docs.T).to(torch.int32).view(b_pad, hi - lo, _SUPER, 128)
+        top = torch.topk(dots * 128 + pos, slots, dim=2).values  # distinct keys
+        for j in range(slots):
+            out[:, j * half + lo * 128 : j * half + hi * 128] = top[:, :, j].reshape(b_pad, -1)
+    return out
+
+
+def i8_turbo_cells(queries: torch.Tensor, corpus: torch.Tensor, *, slots: int) -> torch.Tensor:
+    """Kernel C1 (``slots=1``) or C2 (``slots=2``) of ``csrc/turbo_i8.cu`` on
+    CUDA tensors; their plain twin on CPU tensors. Same contract as
+    :func:`i8_turbo_cells_plain`. ``launches`` counts each slot count
+    apart."""
+    if slots not in (1, 2):
+        raise ValueError(f"slots must be 1 or 2, got {slots}")
+    if queries.device.type == "cpu" and corpus.device.type == "cpu":
+        return i8_turbo_cells_plain(queries, corpus, slots=slots)
+    _require_cuda(queries, corpus)
+    n_super = _check_i8_operands("kernels C", queries, corpus)
+    b_pad, dim = queries.shape
+    out = torch.empty(
+        (b_pad, slots * n_super * 128), dtype=torch.int32, device=queries.device
+    )
+    with torch.cuda.device(queries.device):
+        _kernels.launch(
+            "oi_turbo_i8",
+            _kernels.ptr(queries), _kernels.ptr(corpus), _kernels.ptr(out),
+            slots, b_pad, dim, n_super, _kernels.stream_of(queries),
+        )
+    i8_turbo_cells.launches[slots] += 1
+    return out
+
+
+i8_turbo_cells.launches = {1: 0, 2: 0}
+
+
+def dense_topk_fast_i8(
+    corpus: torch.Tensor,  # (N_pad, D) int8 quantised unit-norm rows (pad_corpus_rows)
+    queries: torch.Tensor,  # (B, D) int8 quantised unit-norm rows
+    k: int = 10,
+    block_c: int = 8192,
+    n_docs: int | None = None,
+    slots: int = 2,  # candidate slots per (super, lane): 1 or 2
+    plain: bool = False,  # run the kernels' plain twin (verification)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8 approximate cosine top-k from kernel C1/C2's per-super cells
+    (the reference's ``dense_topk_fast_i8``). Returns (vals (B, k) f32,
+    ids (B, k) int32), padded with (0.0, -1); k beyond the capacity of
+    128 * slots per super clamps and pads. Pass :func:`pad_corpus_rows`
+    rows and the true ``n_docs``: unpadded rows pay a corpus copy per call.
+    ``block_c`` (a multiple of 128 dividing 16,384) is validated as the
+    reference does; the cells do not depend on it."""
+    if corpus.dtype != torch.int8 or queries.dtype != torch.int8:
+        raise TypeError("dense_topk_fast_i8 takes int8 operands")
+    if slots not in (1, 2):
+        raise ValueError(f"slots must be 1 or 2, got {slots}")
+    if block_c % 128 or _TURBO_UNIT % block_c:
+        raise ValueError("block_c must be a multiple of 128 dividing 16384")
+    n_stored = corpus.shape[0]
+    n_docs = n_stored if n_docs is None else n_docs
+    b = queries.shape[0]
+    if n_stored % _TURBO_UNIT or n_stored < _TURBO_UNIT:
+        corpus = pad_corpus_rows(corpus)
+    queries = _pad_query_rows(queries, _I8_QUERY_TILE)
+    n_super = corpus.shape[0] // _TURBO_UNIT
+    lanes = 128 * slots
+    k_req = k
+    k = min(k, n_super * lanes)
+    half = n_super * 128
+    cells = i8_turbo_cells_plain if plain else i8_turbo_cells
+    packed = cells(queries.contiguous(), corpus, slots=slots)
+    # the reference's over-fetch: `lanes` slots where zero-padding may
+    # shadow negative-scored docs of a small corpus, else the 32-slot margin
+    padded = corpus.shape[0] != n_docs
+    pad_slots = lanes if (padded and n_docs <= 262_144) else 0
+    k_fetch = min(k + max(pad_slots, 32), n_super * lanes)
+
+    def decode(pvals, pcols):
+        pos = pvals & 127  # sub-block within the super
+        col = pcols % half  # both slot halves decode alike
+        ids = (((col // 128) * 128 + pos) * 128 + col % 128).to(torch.int32)
+        # XLA folds the reference's "/ 16129" into a multiply by the
+        # float32 reciprocal; the same multiply keeps the values bit-identical
+        vals = ((pvals - pos - _I8_FLAG128) // 128).float() * (1.0 / _I8_SCALE)
+        return ids, vals, (ids < n_docs) & (pvals > 0)
+
+    vals, ids, valid = _select_and_compact(packed, k, k_fetch, decode)
+    return _finish(vals, ids, valid, b, k_req)
+
+
+# ---------------------------------------------------------------------------
+# Kernel S: the dot-only stream probe, per-lane sums of every int8 dot.
+# ---------------------------------------------------------------------------
+
+
+def dot_only_plain(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+    """Plain twin of kernel S. Returns (B_pad, 128) int32: column l holds
+    the sum of dot(q, doc) over every doc of the padded corpus with
+    id % 128 == l, wrapped mod 2**32 as the reference's int32 adds wrap
+    (summed here in int64, then wrapped)."""
+    require_true_f32()
+    b_pad = queries.shape[0]
+    n_super = corpus.shape[0] // _TURBO_UNIT
+    qf = queries.float()
+    acc = torch.zeros((b_pad, 128), dtype=torch.int64, device=queries.device)
+    for lo in range(0, n_super, _TWIN_CHUNK_SUPERS):
+        hi = min(lo + _TWIN_CHUNK_SUPERS, n_super)
+        docs = corpus[lo * _TURBO_UNIT : hi * _TURBO_UNIT].float()
+        acc += (qf @ docs.T).to(torch.int64).view(b_pad, -1, 128).sum(dim=1)
+    return (((acc + 2**31) % 2**32) - 2**31).to(torch.int32)
+
+
+def dot_only_cells(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+    """Kernel S (``csrc/dot_only.cu``) on CUDA tensors; its plain twin on
+    CPU tensors. Same contract as :func:`dot_only_plain`."""
+    if queries.device.type == "cpu" and corpus.device.type == "cpu":
+        return dot_only_plain(queries, corpus)
+    _require_cuda(queries, corpus)
+    n_super = _check_i8_operands("kernel S", queries, corpus)
+    b_pad, dim = queries.shape
+    out = torch.empty((b_pad, 128), dtype=torch.int32, device=queries.device)
+    with torch.cuda.device(queries.device):
+        _kernels.launch(
+            "oi_dot_only",
+            _kernels.ptr(queries), _kernels.ptr(corpus), _kernels.ptr(out),
+            b_pad, dim, n_super, _kernels.stream_of(queries),
+        )
+    dot_only_cells.launches += 1
+    return out
+
+
+dot_only_cells.launches = 0
+
+
+def dot_only(
+    corpus: torch.Tensor,  # (N_pad, D) int8 (pad_corpus_rows)
+    queries: torch.Tensor,  # (B, D) int8
+    plain: bool = False,  # run kernel S's plain twin (verification)
+) -> torch.Tensor:
+    """The int8 stream-floor probe (the reference's ``dot_only`` of
+    ``scripts/bench_kernel_decomp.py``): (B, 128) int32 per-lane sums of
+    every dot, wrapping. Kernel A's corpus and mma volume with no fold, so
+    its time is the least the int8 candidate stream takes. The batch pads
+    to the 32-query tile; the pad rows are dropped."""
+    if corpus.shape[0] % _TURBO_UNIT or corpus.shape[0] < _TURBO_UNIT:
+        corpus = pad_corpus_rows(corpus)
+    b = queries.shape[0]
+    q = _pad_query_rows(queries, _I8_QUERY_TILE).contiguous()
+    return (dot_only_plain if plain else dot_only_cells)(q, corpus)[:b]
 
 
 # ---------------------------------------------------------------------------
@@ -733,6 +940,8 @@ def reset_launch_counts() -> None:
     fused_topk.launches = 0
     fast_cells.launches = 0
     i4_cells.launches = {1: 0, 2: 0}
+    i8_turbo_cells.launches = {1: 0, 2: 0}
+    dot_only_cells.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -743,4 +952,7 @@ def launch_counts() -> dict[str, int]:
         "turbo_f32": fast_cells.launches,
         "turbo_i4": i4_cells.launches[1],
         "turbo_i4_top2": i4_cells.launches[2],
+        "turbo_i8": i8_turbo_cells.launches[1],
+        "turbo_i8_top2": i8_turbo_cells.launches[2],
+        "dot_only": dot_only_cells.launches,
     }

@@ -14,6 +14,7 @@ from openintel_tpu import native
 from openintel_tpu.index.synthetic import synthetic_postings_index
 from openintel_tpu.ops import bm25 as jb
 from openintel_tpu.ops import reference as ref
+from openintel_tpu_torch import native as tnative
 from openintel_tpu_torch.ops import bm25 as tb
 
 
@@ -24,9 +25,11 @@ def idx():
 
 @pytest.fixture(scope="module")
 def native_lib():
-    native.build()
-    if native._load() is None:  # pragma: no cover - toolchain always present
-        pytest.skip("native library unavailable")
+    """The reference's native library and the port's own copy, both built."""
+    for lib in (native, tnative):
+        lib.build()
+        if lib._load() is None:  # pragma: no cover - toolchain always present
+            pytest.skip("native library unavailable")
     return True
 
 

@@ -6,8 +6,9 @@ NVIDIA card (sm_90a) and nvcc:
 
     python -m pytest tests/test_torch_cuda_kernels.py -m cuda --noconftest -q
 
-Tolerances: the cells of kernels A, E1 and E2 are bit-identical to the
-twins' (integer arithmetic); kernel D's are too on dyadic operands (every
+Tolerances: the cells of kernels A, C1, C2, E1 and E2 and the lane sums of
+kernel S are bit-identical to the twins' (integer arithmetic); kernel D's
+are too on dyadic operands (every
 partial sum exact), and elsewhere a cell's score moves by at most one step
 of 2**-15 (the sum order); kernel B's scores agree to 2e-6 and its ids are
 equal except where two docs' scores differ by less than 1e-5.
@@ -18,13 +19,13 @@ import pytest
 import torch
 from torch_dense_utils import QUANTUM, assert_quantum_rule, dyadic_rows
 
-from openintel_tpu.index.schema import DenseIndex
-from openintel_tpu.index.synthetic import (
+from openintel_tpu_torch import convert
+from openintel_tpu_torch.index.schema import DenseIndex
+from openintel_tpu_torch.index.synthetic import (
     synthetic_embeddings,
     synthetic_postings_index,
     synthetic_query_embeddings,
 )
-from openintel_tpu_torch import convert
 from openintel_tpu_torch.models.retrievers import HybridRetriever
 from openintel_tpu_torch.ops import dense_topk as T
 from openintel_tpu_torch.ops.dense import require_true_f32
@@ -80,7 +81,7 @@ def test_hybrid_int8_path_matches_twins(cuda):
     index = synthetic_postings_index(n, vocab_size=2_000, seed=5)
     emb = synthetic_embeddings(n, dim=64, seed=6)
     retr = HybridRetriever(
-        index, convert.dense_index(emb, dtype=torch.bfloat16), kernel="int8",
+        index, DenseIndex.from_embeddings(emb, dtype=torch.bfloat16), kernel="int8",
         device=cuda, device_batch=32,
     )
     rng = np.random.default_rng(7)
@@ -197,3 +198,66 @@ def test_hybrid_int4_path_matches_twins(cuda):
     got, want = _run_both(retr, q, "turbo_i4_top2")
     np.testing.assert_array_equal(got.ids, want.ids)
     np.testing.assert_array_equal(got.scores, want.scores)
+
+
+@pytest.mark.parametrize("dim", [32, 384, 640])
+@pytest.mark.parametrize("data", ["random", "ties"])
+def test_kernels_c_and_s_match_twins(cuda, data, dim):
+    """Cells of C1 and C2, ``dense_topk_fast_i8`` and kernel S's lane sums,
+    bit for bit; dim 32 is half a k chunk, 640 two passes of five."""
+    n = 2 * T._TURBO_UNIT + 5_000  # 3 supers, the last one short
+    rng = np.random.default_rng(22)
+    if data == "ties":  # entries in {-1, 0, 1}
+        e8 = torch.from_numpy(rng.integers(-1, 2, (n, dim)).astype(np.int8))
+        q8 = torch.from_numpy(rng.integers(-1, 2, (64, dim)).astype(np.int8))
+    else:
+        emb = synthetic_embeddings(n, dim=dim, seed=23)
+        e8 = T.quantize_int8(torch.from_numpy(emb))
+        q8 = T.quantize_int8(torch.from_numpy(synthetic_query_embeddings(emb, 64, seed=24)[0]))
+    corpus = T.pad_corpus_rows(e8.to(cuda))
+    q8 = q8.to(cuda)
+    for slots, name in ((1, "turbo_i8"), (2, "turbo_i8_top2")):
+        before = T.launch_counts()[name]
+        got = T.i8_turbo_cells(q8, corpus, slots=slots)
+        torch.cuda.synchronize()
+        assert T.launch_counts()[name] == before + 1
+        assert torch.equal(got, T.i8_turbo_cells_plain(q8, corpus, slots=slots))
+        kv, ki = T.dense_topk_fast_i8(corpus, q8[:45], k=300, n_docs=n, slots=slots)
+        pv, pi = T.dense_topk_fast_i8(corpus, q8[:45], k=300, n_docs=n, slots=slots, plain=True)
+        assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    before = T.launch_counts()["dot_only"]
+    got = T.dot_only(corpus, q8[:45])
+    torch.cuda.synchronize()
+    assert T.launch_counts()["dot_only"] == before + 1
+    assert torch.equal(got, T.dot_only(corpus, q8[:45], plain=True))
+
+
+def test_kernel_s_wraps_like_int32(cuda):
+    """All-127 operands: every lane sum passes 2**31 and wraps mod 2**32."""
+    corpus = torch.full((3 * T._TURBO_UNIT, 384), 127, dtype=torch.int8, device=cuda)
+    q8 = torch.full((32, 384), 127, dtype=torch.int8, device=cuda)
+    got = T.dot_only_cells(q8, corpus)
+    want = T.dot_only_plain(q8, corpus)
+    assert torch.equal(got, want)
+    exact = 127 * 127 * 384 * 3 * 128  # per lane, beyond int32
+    assert (got.long() == (exact + 2**31) % 2**32 - 2**31).all()
+
+
+def test_measurement_tools_run_on_the_card(cuda):
+    """Each tool's core at a small size, on the card: rows with times, and
+    kernels S, C1, C2 and A launched as the probes say."""
+    from openintel_tpu_torch.tools import common, grouped_ab, kernel_decomp, topk_reduce_ab
+
+    emb, q = common.script_corpus(40_000, 64, near_docs=True, dim=64)
+    rows, corpus, q8s, qfs = common.device_operands(emb, q, 2, 32, cuda)
+    ref_ids = common.exact_ids(rows, qfs.view(64, 64)[:32])
+    T.reset_launch_counts()
+    decomp = kernel_decomp.decompose(corpus, q8s, 40_000, reps=1)
+    reduce = topk_reduce_ab.reduce_ab(corpus, rows, q8s, qfs, 40_000, ref_ids, reps=1)
+    grouped = grouped_ab.grouped_ab(corpus, rows, q8s, qfs, 40_000, ref_ids, groups=[2], reps=1)
+    counts = T.launch_counts()
+    assert counts["dot_only"] == counts["turbo_i8"] == counts["i8_top2g"] == 4
+    assert counts["turbo_i8_top2"] == 4 * (2 + len(reduce) + 1)
+    for row in (*decomp, *reduce, *grouped):
+        assert 0 < row["ms_best"] <= row["ms_median"]
+    assert all(0.9 <= r["recall"] <= 1.0 for r in (*reduce, *grouped))

@@ -33,6 +33,7 @@ from openintel_tpu.ops import dense as jd
 from openintel_tpu.ops import reference as ref
 from openintel_tpu.ops.pallas import dense_topk as J
 from openintel_tpu_torch import convert
+from openintel_tpu_torch.index import schema as tschema
 from openintel_tpu_torch.ops import dense as td
 from openintel_tpu_torch.ops import dense_topk as T
 
@@ -69,7 +70,7 @@ def test_quantize_int8_bit_identical():
 def test_bf16_rows_bit_identical_to_ml_dtypes():
     raw = np.random.default_rng(13).standard_normal((500, 48)).astype(np.float32)
     want = DenseIndex.from_embeddings(raw, dtype=ml_dtypes.bfloat16)
-    got = convert.dense_index(raw, dtype=torch.bfloat16)
+    got = tschema.DenseIndex.from_embeddings(raw, dtype=torch.bfloat16)
     assert (got.n_docs, got.dim) == (want.n_docs, want.dim)
     np.testing.assert_array_equal(
         got.embeddings.view(torch.int16).numpy(),
@@ -265,7 +266,7 @@ def test_exact_rescore_matches_jax(dtype):
 
 NO_LAUNCHES = {
     "i8_top2g": 0, "fused_topk": 0, "turbo_f32": 0, "turbo_i4": 0,
-    "turbo_i4_top2": 0,
+    "turbo_i4_top2": 0, "turbo_i8": 0, "turbo_i8_top2": 0, "dot_only": 0,
 }
 
 
@@ -280,6 +281,8 @@ def test_wrappers_route_cpu_to_twins_without_counting():
     packed = corpus[: T._TURBO_UNIT // 2]
     for slots in (1, 2):
         assert T.i4_cells(q, packed, slots=slots).shape == (32, 128 * slots)
+        assert T.i8_turbo_cells(q, corpus, slots=slots).shape == (32, 128 * slots)
+    assert T.dot_only_cells(q, corpus).shape == (32, 128)
     assert T.launch_counts() == NO_LAUNCHES
 
 
@@ -296,4 +299,8 @@ def test_wrappers_refuse_non_cuda_devices():
         T.fast_cells(q.float(), corpus.float())
     with pytest.raises(ValueError, match="CUDA"):
         T.i4_cells(q, corpus[: T._TURBO_UNIT // 2], slots=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        T.i8_turbo_cells(q, corpus, slots=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        T.dot_only_cells(q, corpus)
     assert T.launch_counts() == NO_LAUNCHES

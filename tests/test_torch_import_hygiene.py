@@ -1,6 +1,8 @@
-"""The port imports torch and never jax, touches no card at import time, and
-never falls back when its CUDA kernels cannot be built."""
+"""The port imports torch and never jax, nor anything of the JAX package;
+it touches no card at import time, runs on the card unless asked for the
+CPU, and never falls back when its CUDA kernels cannot be built."""
 
+import ast
 import os
 import re
 import subprocess
@@ -17,6 +19,10 @@ PORT = REPO / "openintel_tpu_torch"
 SLICE = [
     "openintel_tpu_torch",
     "openintel_tpu_torch.convert",
+    "openintel_tpu_torch.index",
+    "openintel_tpu_torch.index.build",
+    "openintel_tpu_torch.index.schema",
+    "openintel_tpu_torch.index.synthetic",
     "openintel_tpu_torch.models",
     "openintel_tpu_torch.models.embedding",
     "openintel_tpu_torch.models.retrievers",
@@ -26,8 +32,19 @@ SLICE = [
     "openintel_tpu_torch.ops.dense",
     "openintel_tpu_torch.ops.dense_topk",
     "openintel_tpu_torch.ops.fusion",
+    "openintel_tpu_torch.native",
     "openintel_tpu_torch.ops.ranking",
+    "openintel_tpu_torch.ops.tokenizer",
+    "openintel_tpu_torch.tools",
+    "openintel_tpu_torch.tools.common",
+    "openintel_tpu_torch.tools.grouped_ab",
+    "openintel_tpu_torch.tools.kernel_decomp",
+    "openintel_tpu_torch.tools.topk_reduce_ab",
 ]
+
+
+def _imports_reference(module: str) -> bool:
+    return module == "openintel_tpu" or module.startswith("openintel_tpu.")
 
 
 def test_port_imports_no_jax_and_initialises_no_cuda():
@@ -51,11 +68,63 @@ def test_port_imports_no_jax_and_initialises_no_cuda():
     assert res.stdout.strip() == "ok"
 
 
+def test_port_imports_nothing_of_the_jax_package_after_a_search():
+    """Importing the port and running a small CPU search (the hybrid
+    retriever, the int8 candidate op and a measurement tool's core) loads
+    no ``openintel_tpu`` module and no jax."""
+    code = (
+        "import importlib, sys, torch\n"
+        f"for name in {SLICE!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from openintel_tpu_torch import HybridRetriever, dense_topk_fast_i8, dot_only\n"
+        "from openintel_tpu_torch.tools import kernel_decomp\n"
+        "docs = ['apple beats earnings', 'nvda to the moon', 'rates rise again']\n"
+        "r = HybridRetriever.build(docs, dim=16, device='cpu')\n"
+        "assert r.search(['apple moon'], k=2).ids.shape == (1, 2)\n"
+        "c = torch.ones((300, 16), dtype=torch.int8)\n"
+        "q = torch.ones((3, 16), dtype=torch.int8)\n"
+        "assert dense_topk_fast_i8(c, q, k=4)[1].shape == (3, 4)\n"
+        "assert dot_only(c, q).shape == (3, 128)\n"
+        "kernel_decomp.decompose(c, q[None], 300, reps=1)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'openintel_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu")
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "ok"
+
+
 def test_port_sources_hold_no_jax_and_no_compile():
-    for path in PORT.rglob("*.py"):
+    """No module of the port, and not ``chip_smoke.py``, imports jax or the
+    JAX package (any import statement, lazy ones included) or compiles."""
+    for path in [*PORT.rglob("*.py"), REPO / "chip_smoke.py"]:
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
         assert "torch.compile" not in text, path
+        for node in ast.walk(ast.parse(text)):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(map(_imports_reference, names)), (path, node.lineno)
+        assert not re.search(r"""import_module\(\s*["']openintel_tpu[."']""", text), path
+
+
+def test_default_device_is_the_card():
+    """Entry points run on the card unless the caller passes device="cpu";
+    nothing moves to the CPU when no card is present."""
+    import torch
+
+    import openintel_tpu_torch
+
+    assert openintel_tpu_torch.default_device() == torch.device("cuda")
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -65,7 +134,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(_kernels.KernelBuildError, match="nvcc"):
         _kernels.build()
-    for name in ("oi_i8_top2g", "oi_turbo_f32", "oi_turbo_i4"):
+    for name in ("oi_i8_top2g", "oi_turbo_f32", "oi_turbo_i4", "oi_turbo_i8", "oi_dot_only"):
         with pytest.raises(_kernels.KernelBuildError, match="nvcc"):
             _kernels.launch(name)
     assert not (tmp_path / "build").exists()
@@ -78,15 +147,21 @@ def test_library_name_follows_the_sources():
     assert so.parent == _kernels.BUILD_DIR
     assert so.name.startswith("libopenintel_tpu_torch_") and so.suffix == ".so"
     assert {p.name for p in _kernels.sources()} == {
-        "fused_topk.cu", "i8_top2g.cu", "turbo_f32.cu", "turbo_i4.cu"
+        "dot_only.cu", "fused_topk.cu", "i8_top2g.cu", "turbo_f32.cu",
+        "turbo_i4.cu", "turbo_i8.cu",
+    }
+    assert set(_kernels._SIGNATURES) == {
+        "oi_dot_only", "oi_fused_topk", "oi_i8_top2g", "oi_turbo_f32",
+        "oi_turbo_i4", "oi_turbo_i8",
     }
     assert {p.name for p in _kernels.headers()} == {"turbo_common.cuh"}
 
 
 def test_package_data_ships_every_included_kernel_file():
-    """Every kernel source, and every file a source includes with
-    ``#include "..."``, is matched by the package-data globs, so an
-    installed (non-editable) package can still build the kernels."""
+    """Every kernel source, every file a source includes with ``#include
+    "..."``, and the port's native C++ sources are matched by the
+    package-data globs, so an installed (non-editable) package can still
+    build the kernels and the native library."""
     with open(REPO / "pyproject.toml", "rb") as f:
         globs = tomllib.load(f)["tool"]["setuptools"]["package-data"][
             "openintel_tpu_torch"
@@ -102,3 +177,10 @@ def test_package_data_ships_every_included_kernel_file():
     assert needed and all(p.parent == csrc for p in needed)
     assert needed <= shipped, sorted(p.name for p in needed - shipped)
     assert set(_kernels.headers()) <= shipped
+    from openintel_tpu_torch import native
+
+    cpp = set((PORT / "native").glob("*.cpp"))
+    assert set(native._SRCS) == cpp and {p.name for p in cpp} == {
+        "planner.cpp", "postings.cpp", "tokenizer.cpp"
+    }
+    assert cpp <= shipped, sorted(p.name for p in cpp - shipped)

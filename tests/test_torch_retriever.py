@@ -33,6 +33,7 @@ from openintel_tpu.index.synthetic import (
 from openintel_tpu.models import retrievers as jr
 from openintel_tpu.models.embedding import HashingEmbedder as JaxEmbedder
 from openintel_tpu_torch import convert
+from openintel_tpu_torch.index import schema as tschema
 from openintel_tpu_torch.models import retrievers as tr
 from openintel_tpu_torch.models.embedding import HashingEmbedder
 
@@ -85,9 +86,9 @@ def _pair(corpus, kernel, store, fusion, device_batch=16, rows=None):
     j = jr.HybridRetriever(
         index, dense, kernel=kernel, fusion=fusion, device_batch=device_batch
     )
-    t = tr.HybridRetriever(
-        index, dense, kernel=kernel, fusion=fusion, device_batch=device_batch,
-        device="cpu",
+    t = tr.HybridRetriever(  # the JAX-built index carried across
+        convert.postings_index(index), convert.dense_index_from(dense),
+        kernel=kernel, fusion=fusion, device_batch=device_batch, device="cpu",
     )
     return j, t
 
@@ -171,7 +172,7 @@ def test_bm25_and_dense_retrievers_match_jax(corpus, dyadic):
     index, emb, _, q = corpus
     texts = ["t21 t40 t77", "t30", "t1999 t25 t25", "nothing known"]
     jb = jr.BM25Retriever(index).search(texts, k=K)
-    tb = tr.BM25Retriever(index, device="cpu").search(texts, k=K)
+    tb = tr.BM25Retriever(convert.postings_index(index), device="cpu").search(texts, k=K)
     np.testing.assert_array_equal(tb.ids, jb.ids)
     np.testing.assert_array_equal(tb.scores, jb.scores)
     dense = DenseIndex.from_embeddings(emb, dtype=ml_dtypes.bfloat16)
@@ -182,7 +183,7 @@ def test_bm25_and_dense_retrievers_match_jax(corpus, dyadic):
     for kernel in ("xla", "int8", "pallas", "int4", "fast"):
         d, qq = (dyadic_dense, dq) if kernel == "fast" else (dense, q)
         jd = jr.DenseRetriever(d, kernel=kernel).search_embeddings(qq[:9], K)
-        td = tr.DenseRetriever(d, kernel=kernel, device="cpu")
+        td = tr.DenseRetriever(convert.dense_index_from(d), kernel=kernel, device="cpu")
         _assert_close(td.search_embeddings(qq[:9], K), jd)
 
 
@@ -197,8 +198,8 @@ def test_hashing_embedder_copy_matches_original():
 def test_auto_select_mirrors_the_reference():
     """cpu -> the exact product; on an accelerator, int8 at >= 100k docs and
     kernel B below (checked on the meta device, which holds no data)."""
-    small = convert.dense_index(synthetic_embeddings(500, dim=16, seed=11))
-    big = convert.dense_index(np.ones((tr.AUTO_PRUNE_DOCS, 8), np.float32))
+    small = tschema.DenseIndex.from_embeddings(synthetic_embeddings(500, dim=16, seed=11))
+    big = tschema.DenseIndex.from_embeddings(np.ones((tr.AUTO_PRUNE_DOCS, 8), np.float32))
     assert tr.DenseRetriever(small, device="cpu").kernel == "xla"
     assert tr.DenseRetriever(small, device="meta").kernel == "pallas"
     meta_big = tr.DenseRetriever(big, device="meta")

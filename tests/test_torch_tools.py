@@ -1,0 +1,127 @@
+"""The candidate-pass measurement tools (``openintel_tpu_torch.tools``) on the
+CPU at a small size: 40,000 docs x 64, sub-batches of 32, two of them, one
+rep. On CPU tensors the kernels' plain twins run and the clock is the
+host's, so these tests check what the tools compute and print, not their
+times. The reducers of ``topk_reduce_ab`` are held to numpy oracles of the
+reference script's reductions."""
+
+import numpy as np
+import pytest
+import torch
+
+from openintel_tpu_torch.ops import dense_topk as T
+from openintel_tpu_torch.tools import common, grouped_ab, kernel_decomp, topk_reduce_ab
+
+N, DIM, BATCH, NB = 40_000, 64, 32, 2
+CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module")
+def operands():
+    emb, q = common.script_corpus(N, NB * BATCH, near_docs=True, dim=DIM)
+    rows, corpus, q8s, qfs = common.device_operands(emb, q, NB, BATCH, CPU)
+    ref_ids = common.exact_ids(rows, qfs.view(NB * BATCH, DIM)[:48])
+    return rows, corpus, q8s, qfs, ref_ids
+
+
+def _check_rows(rows, labels):
+    assert [r["label"] for r in rows] == labels
+    for r in rows:
+        assert r["batch"] == BATCH
+        assert 0 < r["ms_best"] <= r["ms_median"] < float("inf")
+        if "recall" in r:
+            assert 0.0 <= r["recall"] <= 1.0
+        assert common.row_line(r).startswith(r["label"])
+
+
+def test_kernel_decomp_core(operands):
+    _, corpus, q8s, _, _ = operands
+    rows = kernel_decomp.decompose(corpus, q8s, N, reps=1)
+    _check_rows(rows, [
+        "dot-only (MXU+stream floor)", "fold-only (pack+2max, no topk)",
+        "turbo slots=1 (+select+dec)", "turbo slots=2 (+select+dec)",
+    ])
+
+
+def test_topk_reduce_ab_core(operands):
+    rows, corpus, q8s, qfs, ref_ids = operands
+    out = topk_reduce_ab.reduce_ab(corpus, rows, q8s, qfs, N, ref_ids, reps=1)
+    _check_rows(out, [
+        "approx (exact select)", "group4", "group8", "group16", "exact-topk-768",
+    ])
+    by = {r["label"]: r["recall"] for r in out}
+    assert by["approx (exact select)"] == by["exact-topk-768"] >= 0.95
+
+
+def test_grouped_ab_core(operands):
+    rows, corpus, q8s, qfs, ref_ids = operands
+    out = grouped_ab.grouped_ab(
+        corpus, rows, q8s, qfs, N, ref_ids, groups=[1, 2], reps=1
+    )
+    _check_rows(out, ["int8 per-super+select", "grouped g=1", "grouped g=2"])
+    assert [r["group"] for r in out] == [0, 1, 2]
+
+
+def _oracle_grouped(packed, n_super, n_docs, c, g):
+    """numpy: the reference script's reduce_grouped (max, first argmax over
+    g supers per slot and lane, sentinel-0 padding, exact top c, ties to the
+    lower column)."""
+    b = packed.shape[0]
+    ng = -(-n_super // g)
+    pk = np.zeros((b, 2, ng * g, 128), np.int64)
+    pk[:, :, :n_super] = packed.reshape(b, 2, n_super, 128)
+    pk = pk.reshape(b, 2, ng, g, 128)
+    best, arg = pk.max(axis=3), pk.argmax(axis=3)
+    width = 2 * ng * 128
+    keys = best.reshape(b, width)
+    col = np.arange(width)
+    sup = ((col // 128) % ng) * g + arg.reshape(b, width)
+    ids = (sup * 128 + (keys & 127)) * 128 + col % 128
+    valid = (ids < n_docs) & (keys > 0)
+    masked = np.where(valid, keys, -(2**31))
+    sel = np.argsort(-masked, axis=1, kind="stable")[:, :c]
+    return np.take_along_axis(np.where(valid, ids, -1), sel, axis=1)
+
+
+def _oracle_exact(packed, n_super, n_docs, c):
+    half = n_super * 128
+    sel = np.argsort(-packed.astype(np.int64), axis=1, kind="stable")[:, :c]
+    keys = np.take_along_axis(packed.astype(np.int64), sel, axis=1)
+    col = sel % half
+    ids = ((col // 128) * 128 + (keys & 127)) * 128 + col % 128
+    return np.where((ids < n_docs) & (keys > 0), ids, -1)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+def test_reducers_match_numpy_oracles(operands, g):
+    """On kernel C2's cells (the twin's) of two corpora: the small-corpus
+    case, where padding fills the last super, and a tie-heavy one."""
+    _, corpus, q8s, _, _ = operands
+    rng = np.random.default_rng(61)
+    ties = T.pad_corpus_rows(torch.from_numpy(rng.integers(-1, 2, (N, DIM)).astype(np.int8)))
+    tie_q = torch.from_numpy(rng.integers(-1, 2, (BATCH, DIM)).astype(np.int8))
+    n_super = corpus.shape[0] // T._TURBO_UNIT
+    for crp, q in ((corpus, q8s[0]), (ties, tie_q)):
+        packed = T.i8_turbo_cells_plain(q, crp, slots=2)
+        got = topk_reduce_ab.reduce_grouped(packed, n_super, N, common.C, g)
+        want = _oracle_grouped(packed.numpy(), n_super, N, common.C, g)
+        np.testing.assert_array_equal(got.numpy(), want)
+        got = topk_reduce_ab.reduce_exact_topk(packed, n_super, N, common.C)
+        np.testing.assert_array_equal(got.numpy(), _oracle_exact(packed.numpy(), n_super, N, common.C))
+        sel = topk_reduce_ab.reduce_select(packed, n_super, N, common.C)
+        assert sel.shape == (BATCH, common.C) and int(sel.max()) < N
+
+
+@pytest.mark.parametrize("tool", [kernel_decomp, topk_reduce_ab, grouped_ab])
+def test_tool_commands_print_their_rows(tool, monkeypatch, capsys):
+    """``python -m openintel_tpu_torch.tools.<name> N BATCH NB --device cpu``:
+    the device line first, the clock note, then one row per probe."""
+    monkeypatch.setenv("AB_REPS", "1")
+    monkeypatch.setenv("AB_SAMPLE", "16")
+    monkeypatch.setenv("AB_GROUPS", "2")
+    assert tool.main([str(N), str(BATCH), str(NB), "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("cpu: host clock")
+    assert any(line.startswith("timing: host clock, 1 reps of 2 sub-batches") for line in lines)
+    n_rows = {kernel_decomp: 4, topk_reduce_ab: 5, grouped_ab: 2}[tool]
+    assert sum("ms/sub-batch" in line for line in lines) == n_rows

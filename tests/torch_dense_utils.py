@@ -1,5 +1,5 @@
 """Operands and comparison rules shared by the port's candidate-kernel tests
-(kernels D and E against the JAX package)."""
+(kernels C, D and E against the JAX package)."""
 
 import numpy as np
 
@@ -16,7 +16,8 @@ def dyadic_rows(rng, n: int, dim: int) -> np.ndarray:
 
 
 def fast_pos(ids: np.ndarray) -> np.ndarray:
-    """Kernel D's key position of each doc id (its 128-doc sub-block)."""
+    """Kernel C's and D's key position of each doc id (its 128-doc
+    sub-block)."""
     return np.where(ids >= 0, (ids // 128) % 128, -1)
 
 
