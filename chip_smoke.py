@@ -11,17 +11,24 @@ there), then 4, 5, 8, 9, 11 (the paths):
 
 1. environment: the card, torch and CUDA versions, the kernel build (nvcc,
    ``openintel_tpu_torch/csrc``) and the C++ query planner;
-2. kernel A (``csrc/i8_top2g.cu``) against its plain twin: candidate cells
-   bit-identical over groups {1, 2, auto}, both step widths, padding;
+2. kernel A (``csrc/i8_top2g_tma.cu``, TMA + wgmma, two stages) and its
+   A/B control, the ``mma.sync`` kernel of ``csrc/i8_top2g.cu``, against
+   their plain twin:
+   candidate cells bit-identical over groups {1, 2, auto}, both step
+   widths, padding;
 3. kernel B (``csrc/fused_topk.cu``) against its plain twin: f32 and bf16,
    k in {10, 32}, k > n_docs, exactly duplicated scores;
 4. the main path at full width: 1.25M docs x 384 (bf16 store), the hybrid
    retriever auto-selected to int8, 4 sub-batches of 256 queries through
    prepare -> run_prepared_device -> finalize_prepared; results against the
    plain-twin path, recall@10 against the exact path, per-batch time;
+   kernel A alone against v1 (5 alternating rounds of 10 launches) and its
+   fold stage alone;
 5. text requests: ``HybridRetriever.build`` on ~20k generated docs (kernel B)
    and ``search`` on query strings, against the plain path;
-6. kernel D (``csrc/turbo_f32.cu``) against its plain twin, f32 and bf16:
+6. kernel D (bf16: ``csrc/turbo_bf16_tma.cu``, TMA + wgmma; f32:
+   ``csrc/turbo_f32.cu``) and its bf16 A/B control (``turbo_f32.cu``)
+   against their plain twin, f32 and bf16:
    cells bit-identical on dyadic operands, within one score step (2**-15)
    on random rows, and the ``dense_topk_fast`` decode under the same rule,
    each decoded value its id's score truncated to a step;
@@ -32,7 +39,7 @@ there), then 4, 5, 8, 9, 11 (the paths):
    queries: kernel D per sub-batch; results against the plain-twin path
    (equal wherever the dense arms are equal, the dense arms within one
    score step), recall@10 against the exact path, per-batch time, kernel D
-   alone against its twin;
+   alone against its twin and against v1 (5 alternating rounds);
 9. the ``kernel="int4"`` path at full width, on the same corpus: kernel E2
    per sub-batch; results equal to the plain-twin path, recall@10, per-batch
    time, E2 and E1 alone against their twin; then the public op
@@ -53,8 +60,9 @@ zeroed just before it and read just after, and each kernel of the path
 must have launched. The line before the last is a JSON object with each
 kernel's launches (from its window), error and time beside its twin's and
 its bound (the larger of its bytes over the memory rate and its operations
-over the peak rate of their type); the last line is ``{"ok": true,
-"device": {...}}``. Without a CUDA device the script exits non-zero and
+over the peak rate of their type), and for the redesigned kernels A and D
+the v1 control's median from the same run (``prev_ms``); the last line
+is ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits non-zero and
 prints no result.
 
 With ``--profile``, phases 4, 8 and 9 each add a ``profile`` line:
@@ -114,6 +122,7 @@ HBM_BYTES_PER_S = 3.35e12
 # for the (B, N) product alone, written out; not the kernels' function
 PRODUCT_NOTE = "product alone, not the same function:"
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+AB_ROUNDS, AB_REPS = 5, 10  # redesigned kernel vs its control: rounds x launches
 
 
 def log(msg: str) -> None:
@@ -133,14 +142,15 @@ def bound(inputs, outputs, ops: float, kind: str) -> dict:
     }
 
 
-def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, limit) -> dict:
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, limit, **extra) -> dict:
     """One kernel's record for the ``kernels`` line. No single PyTorch call
     computes any of these kernels' functions (packed top-k folds, a fused
-    top-k, per-lane dot sums), so ``library_ms`` is null for each."""
+    top-k, per-lane dot sums), so ``library_ms`` is null for each. ``extra``:
+    ``prev_ms`` (the A/B control's median from the same run) and the like."""
     return {
         "name": name, "route": "cuda", "source": f"openintel_tpu_torch/csrc/{source}",
         "replaces": replaces, "launches": launches, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, **limit, "library_ms": None,
+        "ms": ms, "plain_ms": plain_ms, **limit, "library_ms": None, **extra,
     }
 
 
@@ -192,6 +202,46 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def ab_rounds(new, old, rounds: int = AB_ROUNDS, reps: int = AB_REPS):
+    """A/B timing in one call: ``rounds`` rounds, each timing ``reps``
+    launches of the new kernel and of its control back to back (the order
+    flips every round). Returns (new ms per round, control ms per round)."""
+    new_ms, old_ms = [], []
+    for r in range(rounds):
+        pair = ((new, new_ms), (old, old_ms))
+        for fn, out in pair if r % 2 == 0 else pair[::-1]:
+            out.append(cuda_ms(fn, reps))
+    return new_ms, old_ms
+
+
+def ab_line(new_ms, old_ms) -> str:
+    rounds = ", ".join(f"{n:.4f}/{o:.4f}" for n, o in zip(new_ms, old_ms))
+    wins = sum(n < o for n, o in zip(new_ms, old_ms))
+    return (
+        f"median {statistics.median(new_ms):.4f} ms vs v1 {statistics.median(old_ms):.4f} ms "
+        f"(rounds new/v1: {rounds}; new faster in {wins} of {len(new_ms)})"
+    )
+
+
+def device_split(fn, reps: int = AB_REPS) -> dict:
+    """Device milliseconds per call of each kernel ``fn`` launches, from
+    ``torch.profiler`` over ``reps`` calls (for a kernel too short for CUDA
+    events around back-to-back calls, which then time the host's launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {
+        e.key: e.self_device_time_total / reps / 1e3
+        for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total
+    }
 
 
 def unit_rows(rng, n, dim):
@@ -247,15 +297,16 @@ def phase_kernel_a() -> None:
         for group in (1, 2, T.auto_i8_group(n, C_ARM)):
             for block_c in (4096, 8192):
                 sub = block_c // 128
-                got = T.i8_top2g_cells(q_pad, crp, group=group, sub=sub)
                 want = T.i8_top2g_cells_plain(q_pad, crp, group=group, sub=sub)
-                for g, w, name in zip(got, want, ("k1", "k2", "s1", "s2")):
-                    if not torch.equal(g, w):
-                        bad = int((g != w).sum())
-                        raise AssertionError(
-                            f"kernel A {name} differs in {bad} cells "
-                            f"(group={group}, block_c={block_c})"
-                        )
+                for label, cells in (("A", T.i8_top2g_cells), ("A v1", T.i8_top2g_cells_v1)):
+                    got = cells(q_pad, crp, group=group, sub=sub)
+                    for g, w, name in zip(got, want, ("k1", "k2", "s1", "s2")):
+                        if not torch.equal(g, w):
+                            bad = int((g != w).sum())
+                            raise AssertionError(
+                                f"kernel {label} {name} differs in {bad} cells "
+                                f"(group={group}, block_c={block_c})"
+                            )
                 width = 2 * (-(-n_super // group)) * 128
                 for k in (C_ARM, width + 7):  # the second clamps and pads
                     kv, ki = T.dense_topk_fast_i8_grouped(
@@ -272,7 +323,7 @@ def phase_kernel_a() -> None:
     log(
         f"phase2 kernel A: {cases} cases (groups 1/2/auto, block_c 4096/8192, "
         f"N={n}, B={b}, D={DIM}, random and tie-heavy) cells and decode "
-        "bit-identical to the twin"
+        "bit-identical to the twin, for the TMA + wgmma kernel and the v1 control"
     )
 
 
@@ -378,12 +429,14 @@ def phase_kernel_d() -> None:
         corpus = T.pad_corpus_rows(torch.from_numpy(dyadic_rows(rng, n, DIM)).to(dev, dtype))
         q = torch.from_numpy(dyadic_rows(rng, b, DIM)).to(dev, dtype)
         q_pad = torch.cat([q, q.new_zeros((64 - b, DIM))])
-        got, want = T.fast_cells(q_pad, corpus), T.fast_cells_plain(q_pad, corpus)
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"kernel D cells differ on dyadic operands ({dtype}): "
-                f"{int((got != want).sum())} cells"
-            )
+        want = T.fast_cells_plain(q_pad, corpus)
+        for label, cells in (("D", T.fast_cells), ("D v1", T.fast_cells_v1)):
+            got = cells(q_pad, corpus)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"kernel {label} cells differ on dyadic operands ({dtype}): "
+                    f"{int((got != want).sum())} cells"
+                )
         for k in (C_ARM, 3 * 128 + 7):  # the second clamps and pads
             kv, ki = T.dense_topk_fast(corpus, q, k=k, n_docs=n)
             pv, pi = T.dense_topk_fast(corpus, q, k=k, n_docs=n, plain=True)
@@ -393,9 +446,10 @@ def phase_kernel_d() -> None:
         corpus = T.pad_corpus_rows(torch.from_numpy(unit_rows(rng, n, DIM)).to(dev, dtype))
         q = torch.from_numpy(unit_rows(rng, b, DIM)).to(dev, dtype)
         q_pad = torch.cat([q, q.new_zeros((64 - b, DIM))])
-        got, want = T.fast_cells(q_pad, corpus), T.fast_cells_plain(q_pad, corpus)
+        want = T.fast_cells_plain(q_pad, corpus)
         scores = (q_pad.float() @ corpus.float().T).view(64, 3, 128, 128)
-        moved += check_fast_cells(got, want, scores)[1]
+        moved += check_fast_cells(T.fast_cells(q_pad, corpus), want, scores)[1]
+        check_fast_cells(T.fast_cells_v1(q_pad, corpus), want, scores)
         for k in (C_ARM, 3 * 128 + 7):
             kv, ki = T.dense_topk_fast(corpus, q, k=k, n_docs=n)
             pv, pi = T.dense_topk_fast(corpus, q, k=k, n_docs=n, plain=True)
@@ -405,7 +459,8 @@ def phase_kernel_d() -> None:
         cases += 1
     torch.cuda.synchronize()
     log(
-        f"phase6 kernel D: f32 and bf16, N={n}, B={b}, D={DIM}: dyadic cells and "
+        f"phase6 kernel D: f32 and bf16 (bf16: TMA + wgmma; its v1 control "
+        f"alike), N={n}, B={b}, D={DIM}: dyadic cells and "
         f"decode (k {C_ARM}, capacity+7) bit-identical to the twin; random rows "
         f"within one step ({STEP:.3g}), {moved} cells moved position, "
         f"{swaps} decode ranks swapped within a step"
@@ -724,27 +779,44 @@ def phase_int8_path(corpus, card, profile: bool) -> dict:
     if profile:
         log(f"profile int8: {profile_step(retr, prep)} [{card}]")
 
-    # kernel A alone at the main path's shapes
+    # kernel A alone at the main path's shapes, against its v1 control
     q8 = prep.queries_i8[0].contiguous()
     emb = retr.dense._emb_device
     group = T.auto_i8_group(N_DOCS, C_ARM)
     sub = retr._dense_block_c(BATCH) // 128
+    n_super = emb.shape[0] // T._TURBO_UNIT
     got = T.i8_top2g_cells(q8, emb, group=group, sub=sub)
     want = T.i8_top2g_cells_plain(q8, emb, group=group, sub=sub)
+    v1 = T.i8_top2g_cells_v1(q8, emb, group=group, sub=sub)
     a_err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
-    if a_err:
-        raise AssertionError(f"kernel A differs from its twin by {a_err}")
-    a_ms = cuda_ms(lambda: T.i8_top2g_cells(q8, emb, group=group, sub=sub), 10)
+    if a_err or not all(torch.equal(g, w) for g, w in zip(v1, want)):
+        raise AssertionError(f"kernel A (or v1) differs from its twin by {a_err}")
+    # the second stage alone, on the twin's first stage
+    steps = T.i8_step_tops_plain(q8, emb, sub=sub)
+    folded = T.i8_fold_steps(steps, n_super=n_super, group=group, sub=sub)
+    if not all(torch.equal(f, w) for f, w in zip(folded, want)):
+        raise AssertionError("kernel A's fold stage differs from the twin")
+    new_ms, old_ms = ab_rounds(
+        lambda: T.i8_top2g_cells(q8, emb, group=group, sub=sub),
+        lambda: T.i8_top2g_cells_v1(q8, emb, group=group, sub=sub),
+    )
+    split = device_split(lambda: T.i8_top2g_cells(q8, emb, group=group, sub=sub))
+    stream_ms = sum(ms for name, ms in split.items() if "i8_steps_tma" in name)
+    fold_ms = sum(ms for name, ms in split.items() if "i8_fold" in name)
+    a_ms, a_v1_ms = statistics.median(new_ms), statistics.median(old_ms)
     a_plain_ms = cuda_ms(lambda: T.i8_top2g_cells_plain(q8, emb, group=group, sub=sub), 3)
     limit = bound((q8, emb), got, product_ops(q8, emb), "int8")
     log(
-        f"kernel A at B={BATCH}, N={N_DOCS}, D={DIM}, group={group}: "
-        f"{a_ms:.3f} ms vs twin {a_plain_ms:.3f} ms, bound {limit['bound_ms']:.4f} "
-        f"ms ({limit['bound_by']}) [{card}]"
+        f"kernel A at B={BATCH}, N={N_DOCS}, D={DIM}, group={group}, sub={sub}: "
+        f"{ab_line(new_ms, old_ms)}; device time per call (profiler): stream "
+        f"{stream_ms:.4f} ms, fold {fold_ms:.4f} ms; twin "
+        f"{a_plain_ms:.3f} ms; bound {limit['bound_ms']:.4f} ms ({limit['bound_by']}), "
+        f"share {limit['bound_ms'] / a_ms:.3f} (v1 {limit['bound_ms'] / a_v1_ms:.3f}) [{card}]"
     )
     return kernel_entry(
-        "i8_top2g", "i8_top2g.cu", "openintel_tpu/ops/pallas/dense_topk.py:591",
-        counts["i8_top2g"], a_err, a_ms, a_plain_ms, limit,
+        "i8_top2g", "i8_top2g_tma.cu", "openintel_tpu/ops/pallas/dense_topk.py:591",
+        counts["i8_top2g"], a_err, a_ms, a_plain_ms, limit, prev_ms=a_v1_ms,
+        stream_ms=stream_ms, fold_ms=fold_ms,
     )
 
 
@@ -839,26 +911,29 @@ def phase_fast_path(corpus, card, profile: bool) -> dict:
     if profile:
         log(f"profile fast: {profile_step(retr, prep)} [{card}]")
 
-    # kernel D alone at the main path's shapes
+    # kernel D alone at the main path's shapes, against its v1 control
     q = prep.queries[0].contiguous()
     emb = retr.dense._emb_device
     got, want = T.fast_cells(q, emb), T.fast_cells_plain(q, emb)
     d_err = float((step_decode(got) - step_decode(want)).abs().max())
-    if d_err > STEP:
-        raise AssertionError(f"kernel D differs from its twin by {d_err:.3g}")
-    d_ms = cuda_ms(lambda: T.fast_cells(q, emb), 10)
+    v1_err = float((step_decode(T.fast_cells_v1(q, emb)) - step_decode(want)).abs().max())
+    if max(d_err, v1_err) > STEP:
+        raise AssertionError(f"kernel D (v1) differs from its twin by {d_err:.3g} ({v1_err:.3g})")
+    new_ms, old_ms = ab_rounds(lambda: T.fast_cells(q, emb), lambda: T.fast_cells_v1(q, emb))
+    d_ms, d_v1_ms = statistics.median(new_ms), statistics.median(old_ms)
     d_plain_ms = cuda_ms(lambda: T.fast_cells_plain(q, emb), 3)
     limit = bound((q, emb), (got,), product_ops(q, emb), "bf16")
     product = cuda_ms(lambda: torch.matmul(q, emb.T), 10)
     log(
-        f"kernel D at B={BATCH}, N={N_DOCS}, D={DIM} bf16: {d_ms:.3f} ms vs twin "
-        f"{d_plain_ms:.3f} ms, max cell score error {d_err:.3g}, bound "
-        f"{limit['bound_ms']:.4f} ms ({limit['bound_by']}); {PRODUCT_NOTE} "
-        f"torch.matmul {product:.3f} ms [{card}]"
+        f"kernel D at B={BATCH}, N={N_DOCS}, D={DIM} bf16: {ab_line(new_ms, old_ms)}; "
+        f"twin {d_plain_ms:.3f} ms, max cell score error {d_err:.3g}, bound "
+        f"{limit['bound_ms']:.4f} ms ({limit['bound_by']}), share "
+        f"{limit['bound_ms'] / d_ms:.3f} (v1 {limit['bound_ms'] / d_v1_ms:.3f}); "
+        f"{PRODUCT_NOTE} torch.matmul {product:.3f} ms [{card}]"
     )
     return kernel_entry(
-        "turbo_f32", "turbo_f32.cu", "openintel_tpu/ops/pallas/dense_topk.py:290",
-        counts["turbo_f32"], d_err, d_ms, d_plain_ms, limit,
+        "turbo_f32", "turbo_bf16_tma.cu", "openintel_tpu/ops/pallas/dense_topk.py:290",
+        counts["turbo_f32"], d_err, d_ms, d_plain_ms, limit, prev_ms=d_v1_ms,
     )
 
 

@@ -1,0 +1,656 @@
+// The Hopper corpus stream shared by kernel D's bf16 path (turbo_bf16_tma.cu)
+// and kernel A (i8_top2g_tma.cu): TMA loads into a ring of shared-memory
+// tiles, consumed by wgmma.
+//
+// A block holds 128 queries (two consumer warpgroups of 64) and walks work
+// units of (super, lane half, part of the super's 128 sub-blocks). A doc
+// tile is 64 rows: lanes 64 h .. 64 h + 63 of one 128-doc sub-block, so a
+// tile's products are one wgmma n64 per k step, and each consumer thread
+// holds 32 cells (its accumulator fragment). With an even number of query
+// tiles (B = 256: two) the blocks of query tiles 2k and 2k + 1 form a
+// cluster that walks the same units: each block loads half of every doc
+// tile's rows and multicasts it to both, so a doc tile is read from device
+// memory once per 256 queries. The grid is persistent: ctas_per_qt blocks
+// per query tile, each taking units c, c + ctas_per_qt, ...; the host
+// splits supers into parts so the units divide evenly over the blocks.
+//
+// Roles (no block barrier after the set-up; setmaxnreg moves registers
+// from the producer warpgroup, 40 a thread, to the consumers, 232):
+// - one producer thread (warp 8) keeps TMA loads in flight: per ring stage
+//   (up to 3 of a tile's 128-byte K boxes) cp.async.bulk.tensor loads
+//   completing on the stage's `full` mbarrier, after a wait on its
+//   `empty` mbarrier, which in a cluster counts the releases of both
+//   blocks' consumers (the peer's loads land in this block's stage too);
+//   at the end it waits for every stage's last release, so no peer still
+//   reads its loads or arrives on its barriers when the block exits;
+// - warps 0-7 (two warpgroups) wait on `full`, issue the stage's wgmma k
+//   steps and commit them as one group, then wait until only that group
+//   is pending (wait_group 1) and release the stage before it (one
+//   `empty` arrival per warp). Two accumulator sets take alternate
+//   sub-blocks: the kernel's fold of sub-block p - 1 runs while sub-block
+//   p's first group is on the tensor cores.
+// Queries stay in shared memory for the whole kernel (one TMA load per
+// box) when they fit beside a ring of 4 stages; rows of up to 6 boxes
+// (768 bytes) are then moved once into registers as wgmma A fragments, so
+// the tensor cores read only the doc tile from shared memory (half the
+// shared-memory traffic of two shared operands, which at n64 matched the
+// tensor cores' own time). Wider rows stream each box's 128 query rows
+// with the doc box instead.
+//
+// Layout: both operands row-major (rows, row_bytes), K-major for wgmma,
+// loaded in boxes of (rows x 128 bytes) with the 128-byte swizzle; bytes
+// past row_bytes are zero-filled by TMA, so they add 0 to every dot.
+
+#pragma once
+
+#include <cstdint>
+#include <cuda.h>  // CUtensorMap and the types of cuTensorMapEncodeTiled
+#include <type_traits>
+#include <cuda_runtime.h>
+
+// Measurement builds only (tools/stream_ablation.py): 1 drops the kernels'
+// fold callbacks, 2 the wgmma products too, leaving the stream alone. The
+// library the port loads is built without it (0).
+#ifndef OI_STREAM_ABLATE
+#define OI_STREAM_ABLATE 0
+#endif
+
+namespace oi_tma {
+
+constexpr int kBoxBytes = 128;   // K bytes per TMA box: one swizzled row
+constexpr int kQueryRows = 128;  // queries per block (two warpgroups of 64)
+constexpr int kDocRows = 64;     // docs per tile: half a sub-block (wgmma n)
+constexpr int kLanes = 128;      // docs per sub-block (= lanes)
+constexpr int kSuper = 128;      // sub-blocks per 16,384-doc super
+constexpr int kConsumerWarps = 8;
+constexpr int kThreads = 32 * (kConsumerWarps + 4);  // + the producer warpgroup
+constexpr int kQBox = kQueryRows * kBoxBytes;        // 16 KB
+constexpr int kDBox = kDocRows * kBoxBytes;          // 8 KB
+constexpr int kMaxStages = 16;
+constexpr int kMinResidentStages = 4;
+constexpr int kSmemMax = 232448;  // dynamic shared memory one block may use
+constexpr int kBarBytes = 8 * (2 * kMaxStages + 1);
+constexpr int kMaxParts = 16;  // parts per super, at most (8 sub-blocks each)
+
+// What the host decides per launch; the kernel reads it.
+struct Geometry {
+  int row_bytes;     // bytes per query and doc row (a multiple of 16)
+  int box_cols;      // elements per 128-byte box (the maps' column step)
+  int n_box;         // 128-byte K boxes per row
+  int b_pad;         // query rows; rows past it are neither read nor stored
+  int n_super;
+  int n_qt;          // 128-query tiles
+  int cluster;       // blocks per cluster: 2 pairs query tiles 2k, 2k + 1
+  int ctas_per_qt;   // blocks per 128-query tile
+  int parts;         // parts per super (units = n_super * 2 * parts)
+  int stages;        // ring stages
+  int kb;            // doc boxes per stage (1 when queries stream)
+  int qregs;         // boxes of queries held in registers (0: none)
+  int qstream;       // 1: queries stream with each doc box
+};
+
+// Doc boxes per ring stage for a kernel holding qregs boxes of queries in
+// registers: a whole sub-block's boxes up to 3, else half of them; one
+// box when the queries are read from shared memory.
+__host__ __device__ constexpr int boxes_per_stage(int qregs) {
+  return qregs <= 0 ? 1 : qregs <= 3 ? qregs : (qregs + 1) / 2;
+}
+
+// ---------------------------------------------------------------------------
+// Device: mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n" ::"r"(
+          smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t mbar_try_wait(uint32_t addr,
+                                                  uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done;
+}
+
+// Wait until the phase of the given parity has completed. A wait of more
+// than ~2^34 cycles (seconds) can only be a broken pipeline: trap, so the
+// launch fails with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  if (mbar_try_wait(addr, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(addr, parity)) {
+    if (clock64() - start > (1ll << 34)) __trap();
+  }
+}
+
+// Arrive on the barrier at the same shared-memory offset in block `rank`
+// of the cluster (this block's own included).
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster (a block barrier too).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One box into the same shared-memory offset of every block in `mask`,
+// completing bytes on each one's barrier at `bar`'s offset.
+__device__ __forceinline__ void tma_load_multicast(void* dst,
+                                                   const CUtensorMap* map,
+                                                   uint64_t* bar, int c0,
+                                                   int c1, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes.multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask),
+      "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// One box of a 2-D tensor map (c0: element column, c1: row) into shared
+// memory, completing `bytes` of the barrier's transaction count.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major operand in 128-byte swizzled rows, 8-row
+// groups 1024 bytes apart; p is 1024-aligned plus the k offset in the row.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>  // wait until at most N committed groups are pending
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across a wgmma
+// fence or wait.
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(int32_t (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+#define OI_WGMMA_D32(c)                                                        \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]),      \
+      c(d[8]), c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]),      \
+      c(d[15]), c(d[16]), c(d[17]), c(d[18]), c(d[19]), c(d[20]), c(d[21]),    \
+      c(d[22]), c(d[23]), c(d[24]), c(d[25]), c(d[26]), c(d[27]), c(d[28]),    \
+      c(d[29]), c(d[30]), c(d[31])
+#define OI_WGMMA_REGS                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "    \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "     \
+  "%30, %31}"
+#define OI_F(x) "+f"(x)
+#define OI_R(x) "+r"(x)
+
+// The products of one k step (32 bytes of K): d (64 x 64) += a (64 rows)
+// b^T (64 rows), both K-major. ss: a from shared memory (descriptor); rs: a
+// from registers, this thread's fragment (rows gq, gq + 8 of its warp's 16;
+// bytes 4 tq .. 4 tq + 3 and 16 + 4 tq .. of the step, as mma.sync's A).
+struct MmaBf16 {  // bf16 x bf16 -> f32, m64n64k16
+  using Acc = float[32];
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " OI_WGMMA_REGS
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : OI_WGMMA_D32(OI_F)
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32],
+                                            const uint32_t (&a)[4], uint64_t b,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " OI_WGMMA_REGS
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : OI_WGMMA_D32(OI_F)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+struct MmaS8 {  // s8 x s8 -> s32, m64n64k32
+  using Acc = int32_t[32];
+  static __device__ __forceinline__ void ss(int32_t (&d)[32], uint64_t a,
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " OI_WGMMA_REGS
+        ", %32, %33, p;\n}\n"
+        : OI_WGMMA_D32(OI_R)
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs(int32_t (&d)[32],
+                                            const uint32_t (&a)[4], uint64_t b,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " OI_WGMMA_REGS
+        ", {%32, %33, %34, %35}, %36, p;\n}\n"
+        : OI_WGMMA_D32(OI_R)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+#undef OI_WGMMA_D32
+#undef OI_WGMMA_REGS
+#undef OI_F
+#undef OI_R
+
+// A consumer thread's cells: accumulator value i is query row
+// `row + 8 * ((i >> 1) & 1)` and tile column `col + 8 * (i >> 2) + (i & 1)`
+// (the wgmma m64nNk accumulator layout).
+struct Cell {
+  int row;  // query row of values 0, 1 (absolute)
+  int col;  // tile column (doc lane - 64 h) of value 0
+};
+
+// The stream. Per unit: begin(); per sub-block of the unit (ascending pos):
+// the dots into an accumulator, then fold(acc, cell, s, half, pos); at the
+// unit's end finish(cell, s, half, part). The callbacks run only in
+// warpgroups that hold real query rows. QREGS > 0: the queries' A
+// fragments of all QREGS (= n_box) boxes sit in registers (loaded once from
+// the resident tiles), so the tensor cores read only the doc tile from
+// shared memory; 0: both operands from shared memory.
+template <int QREGS, typename Mma, typename Begin, typename Fold,
+          typename Finish>
+__device__ __forceinline__ void stream_tiles(const Geometry& g,
+                                             const CUtensorMap* tq,
+                                             const CUtensorMap* tc,
+                                             Begin begin, Fold fold,
+                                             Finish finish) {
+  using Acc = typename Mma::Acc;
+  constexpr int KB = boxes_per_stage(QREGS);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int stage_bytes = g.kb * kDBox + (g.qstream ? kQBox : 0);
+  uint8_t* q_s = base;  // resident queries: n_box boxes of 128 rows
+  uint8_t* ring = base + (g.qstream ? 0 : g.n_box * kQBox);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + g.stages * stage_bytes);
+  uint64_t* empty = full + g.stages;
+  uint64_t* qbar = empty + g.stages;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int qt = blockIdx.x % g.n_qt;  // a cluster's blocks: neighbouring qt
+  const int cta = blockIdx.x / g.n_qt;
+  const uint32_t rank = g.cluster > 1 ? cluster_rank() : 0;
+  const int units = g.n_super * 2 * g.parts;
+  const int per_part = kSuper / g.parts;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < g.stages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kConsumerWarps * g.cluster);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();  // the peer's loads and arrivals may reach our barriers
+
+  if (warp >= kConsumerWarps) {
+    // ---- producer warpgroup: one thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == kConsumerWarps && lane == 0) {
+      const int q_row = qt * kQueryRows;
+      if (!g.qstream) {
+        mbar_expect_tx(qbar, g.n_box * kQBox);
+        for (int b = 0; b < g.n_box; ++b)
+          tma_load(q_s + b * kQBox, tq, qbar, b * g.box_cols, q_row);
+      }
+      uint32_t stage = 0, phase = 0;
+      for (int u = cta; u < units; u += g.ctas_per_qt) {
+        const int part = u % g.parts;
+        const int half = (u / g.parts) & 1;
+        const int s = u / (2 * g.parts);
+        for (int pos = part * per_part; pos < (part + 1) * per_part; ++pos) {
+          const int row0 = (s * kSuper + pos) * kLanes + half * kDocRows;
+          for (int b0 = 0; b0 < g.n_box; b0 += g.kb) {
+            const int nb = g.n_box - b0 < g.kb ? g.n_box - b0 : g.kb;
+            mbar_wait(&empty[stage], phase ^ 1);
+            uint8_t* dst = ring + stage * stage_bytes;
+            mbar_expect_tx(&full[stage], nb * (kDBox + (g.qstream ? kQBox : 0)));
+            for (int bb = 0; bb < nb; ++bb) {
+              const int col = (b0 + bb) * g.box_cols;
+              if (g.cluster > 1)  // this block's half of the rows, to both
+                tma_load_multicast(dst + bb * kDBox + rank * (kDBox / 2), tc,
+                                   &full[stage], col, row0 + rank * (kDocRows / 2),
+                                   0x3);
+              else
+                tma_load(dst + bb * kDBox, tc, &full[stage], col, row0);
+            }
+            if (g.qstream)  // kb is 1
+              tma_load(dst + kDBox, tq, &full[stage], b0 * g.box_cols, q_row);
+            if (++stage == static_cast<uint32_t>(g.stages)) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+      // wait until every stage is released by the consumers of every block
+      // of the cluster: then no peer still reads what this block loaded,
+      // nor arrives on its barriers, and the block may exit
+      for (int i = 0; i < g.stages; ++i) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        if (++stage == static_cast<uint32_t>(g.stages)) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns query rows 64 wg .. 64 wg + 63 ----
+    // Two accumulator sets take alternate sub-blocks, and each box's wgmma
+    // group is left running while the next box is issued (wait_group 1):
+    // the fold of sub-block p - 1 runs while sub-block p's first box is on
+    // the tensor cores, and a stage is released once its group is done.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int wg = warp >> 2;
+    const bool live = qt * kQueryRows + wg * 64 < g.b_pad;
+    Cell cell;
+    cell.row = qt * kQueryRows + wg * 64 + 16 * (warp & 3) + (lane >> 2);
+    cell.col = 2 * (lane & 3);
+    Acc acc0, acc1;
+    uint32_t qa[QREGS > 0 ? 4 * QREGS : 1][4];  // [box * 4 + k step][a0..a3]
+    if (!g.qstream) mbar_wait(qbar, 0);
+    if constexpr (QREGS > 0) {
+      const int r0 = wg * 64 + 16 * (warp & 3) + (lane >> 2);
+#pragma unroll
+      for (int i = 0; i < 4 * QREGS; ++i) {
+        const uint8_t* box = q_s + (i >> 2) * kQBox;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {  // a0..a3: rows r0, r0 + 8; bytes +0, +16
+          const int row = r0 + 8 * (j & 1);
+          const int byte = 32 * (i & 3) + 4 * (lane & 3) + 16 * (j >> 1);
+          qa[i][j] = *reinterpret_cast<const uint32_t*>(
+              box + row * kBoxBytes + ((((byte >> 4) ^ (row & 7)) << 4) | (byte & 15)));
+        }
+      }
+    }
+    uint32_t stage = 0, phase = 0;
+    int held = -1;  // the stage whose wgmma group may still be running
+    auto release = [&](int st) {
+      __syncwarp();
+      if (lane == 0) {
+        if (g.cluster > 1) {
+          for (int r = 0; r < g.cluster; ++r) mbar_arrive_cluster(&empty[st], r);
+        } else {
+          mbar_arrive(&empty[st]);
+        }
+      }
+    };
+    // sub-block pos into cur; after its first box is issued, fold prev
+    // (sub-block pos - 1) when fold_prev
+    auto run = [&](Acc& cur, Acc& prev, int pos, bool fold_prev, int s,
+                   int half) {
+#pragma unroll
+      for (int b0 = 0; b0 < (QREGS > 0 ? QREGS : g.n_box); b0 += KB) {
+        mbar_wait(&full[stage], phase);
+        // every k step, also in a warpgroup of padding rows and past the
+        // row's end (zero-filled): the compiler serialises a wgmma under a
+        // branch
+        const uint8_t* dtile = ring + stage * stage_bytes;
+        fence_regs(cur);
+        wgmma_fence();
+        if constexpr (OI_STREAM_ABLATE >= 2) {
+        } else if constexpr (QREGS > 0) {
+#pragma unroll
+          for (int bb = 0; bb < KB; ++bb) {
+            if (b0 + bb >= QREGS) break;  // compile-time
+#pragma unroll
+            for (int kk = 0; kk < kBoxBytes / 32; ++kk)
+              Mma::rs(cur, qa[4 * (b0 + bb) + kk],
+                      sw128_desc(dtile + bb * kDBox + kk * 32), b0 + bb > 0 || kk > 0);
+          }
+        } else {  // one box per stage
+          const uint8_t* qtile =
+              (g.qstream ? dtile + kDBox : q_s + b0 * kQBox) + wg * (kQBox / 2);
+#pragma unroll
+          for (int kk = 0; kk < kBoxBytes / 32; ++kk)
+            Mma::ss(cur, sw128_desc(qtile + kk * 32),
+                    sw128_desc(dtile + kk * 32), b0 > 0 || kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // every group but this stage's is done
+        if (held >= 0) release(held);
+        held = static_cast<int>(stage);
+        if (++stage == static_cast<uint32_t>(g.stages)) {
+          stage = 0;
+          phase ^= 1;
+        }
+        if (b0 == 0 && fold_prev) {
+          fence_regs(prev);
+          if (live && OI_STREAM_ABLATE == 0) fold(prev, cell, s, half, pos - 1);
+        }
+      }
+    };
+    for (int u = cta; u < units; u += g.ctas_per_qt) {
+      const int part = u % g.parts;
+      const int half = (u / g.parts) & 1;
+      const int s = u / (2 * g.parts);
+      const int first = part * per_part;  // per_part is even
+      if (live) begin();
+      for (int pos = first; pos < first + per_part; pos += 2) {
+        run(acc0, acc1, pos, pos > first, s, half);
+        run(acc1, acc0, pos + 1, true, s, half);
+      }
+      wgmma_wait<0>();
+      release(held);
+      held = -1;
+      fence_regs(acc1);
+        if (live && OI_STREAM_ABLATE == 0) {
+        fold(acc1, cell, s, half, first + per_part - 1);
+        finish(cell, s, half, part);
+      }
+    }
+  }
+}
+
+// The largest QREGS a kernel is built for: queries of up to 6 boxes (768
+// bytes a row) ride in registers, 96 of them a thread. A kernel with more
+// state per cell than kernel D's passes a smaller limit to plan().
+constexpr int kMaxQRegBoxes = 6;
+
+// Call f(integral_constant<int, QREGS>) with the geometry's qregs, built
+// for 0 .. MaxQ only (plan() never picks more than the kernel's limit).
+template <int MaxQ, typename F>
+int with_qregs(const Geometry& g, F&& f) {
+  using std::integral_constant;
+#define OI_QREGS(N)                                          \
+  case N:                                                     \
+    if constexpr (MaxQ >= N) return f(integral_constant<int, N>{}); \
+    break
+  switch (g.qregs) {
+    OI_QREGS(1);
+    OI_QREGS(2);
+    OI_QREGS(3);
+    OI_QREGS(4);
+    OI_QREGS(5);
+    OI_QREGS(6);
+  }
+#undef OI_QREGS
+  return f(integral_constant<int, 0>{});
+}
+
+// ---------------------------------------------------------------------------
+// Host: tensor maps and the launch geometry
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, looked up through the runtime (the
+// library is not linked against libcuda); null where it is missing.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A row-major (rows, row_bytes) tensor in boxes of (box_rows x 128 bytes),
+// 128-byte swizzle, zero fill past the row and past the last row.
+inline bool encode_rows(CUtensorMap* map, const void* ptr,
+                        CUtensorMapDataType type, int elem_bytes,
+                        uint64_t rows, int row_bytes, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(row_bytes / elem_bytes),
+                              rows};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBoxBytes / elem_bytes),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box,
+            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline int smem_bytes(const Geometry& g) {
+  const int stage = g.kb * kDBox + (g.qstream ? kQBox : 0);
+  return 1024 + (g.qstream ? 0 : g.n_box * kQBox) + g.stages * stage + kBarBytes;
+}
+
+// The geometry for b_pad queries of row_bytes over n_super supers. Parts per
+// super: the fewest (dividing max_parts, a power of two) that spread the
+// units over the blocks at >= 90 % (else the most even split found).
+inline Geometry plan(int row_bytes, int elem_bytes, int b_pad, int n_super,
+                     int max_parts, int max_qreg_boxes) {
+  Geometry g{};
+  g.row_bytes = row_bytes;
+  g.box_cols = kBoxBytes / elem_bytes;
+  g.n_box = (row_bytes + kBoxBytes - 1) / kBoxBytes;
+  g.b_pad = b_pad;
+  g.n_super = n_super;
+  g.qstream = 1024 + g.n_box * kQBox + kMinResidentStages * kDBox + kBarBytes >
+              kSmemMax;
+  g.qregs = g.qstream || g.n_box > max_qreg_boxes ? 0 : g.n_box;
+  g.kb = boxes_per_stage(g.qregs);
+  const int stage = g.kb * kDBox + (g.qstream ? kQBox : 0);
+  const int room = kSmemMax - 1024 - kBarBytes - (g.qstream ? 0 : g.n_box * kQBox);
+  g.stages = room / stage < kMaxStages ? room / stage : kMaxStages;
+
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int n_qt = (b_pad + kQueryRows - 1) / kQueryRows;
+  g.n_qt = n_qt;
+  g.cluster = n_qt % 2 == 0 ? 2 : 1;  // a doc tile loaded once per 256 queries
+  const int per_qt = sms / n_qt > 1 ? sms / n_qt : 1;
+  double best = -1.0;
+  for (int parts = 1; parts <= max_parts && parts <= kMaxParts; parts *= 2) {
+    const int units = n_super * 2 * parts;
+    const int ctas = units < per_qt ? units : per_qt;
+    const int rounds = (units + ctas - 1) / ctas;
+    const double eff = static_cast<double>(units) / (rounds * per_qt);
+    if (eff > best + 1e-9) {
+      best = eff;
+      g.parts = parts;
+      g.ctas_per_qt = ctas;
+    }
+    if (eff >= 0.9) break;
+  }
+  return g;
+}
+
+// Launch the stream kernel: n_qt * ctas_per_qt blocks, in clusters of
+// g.cluster (neighbouring query tiles).
+template <typename... Args>
+int launch_stream(void (*kernel)(Args...), const Geometry& g,
+                  cudaStream_t stream, Args... args) {
+  const int smem = smem_bytes(g);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.n_qt * g.ctas_per_qt);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = g.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+}  // namespace oi_tma

@@ -15,6 +15,7 @@ when that is not 0.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -39,6 +40,12 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # q, corpus, k1, k2, s1, s2, b_pad, dim, n_super, group, sub, stream
     "oi_i8_top2g": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, corpus, k1, k2, s1, s2, steps, b_pad, dim, n_super, group, sub, stream
+    "oi_i8_top2g_tma": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # steps, k1, k2, s1, s2, b_pad, n_super, group, sub, stream
+    "oi_i8_fold": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, corpus, out, b_pad, dim, n_super, stream
+    "oi_turbo_bf16_tma": [_P, _P, _P, _I, _I, _I, _P],
     # q, docs, is_bf16, part_vals, part_ids, out_vals, out_ids,
     # b, n_docs, dim, k, n_split, split_len, stream
     "oi_fused_topk": [
@@ -86,20 +93,21 @@ def find_nvcc() -> str:
     )
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(extra_flags: tuple[str, ...] = ()) -> Path:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *extra_flags)).encode())
     for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libopenintel_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[Path, float]:
+def build(extra_flags: tuple[str, ...] = ()) -> tuple[Path, float]:
     """Compile the kernels unless the library for these sources exists.
     Returns (library path, seconds spent compiling; 0.0 when cached). The
     compiler's resource report (``-Xptxas -v``) is kept beside the
-    library as ``<name>.log``."""
-    so = library_path()
+    library as ``<name>.log``. ``extra_flags`` (measurement builds, such as
+    ``-DOI_STREAM_ABLATE=1``) name a library of their own."""
+    so = library_path(extra_flags)
     if so.exists():
         return so, 0.0
     nvcc = find_nvcc()
@@ -109,7 +117,7 @@ def build() -> tuple[Path, float]:
     t0 = time.perf_counter()
     procs = [
         subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            [nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         for src, obj in zip(sources(), objs)
@@ -138,9 +146,10 @@ def build() -> tuple[Path, float]:
 
 
 @functools.cache
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, once per process."""
-    so, _ = build()
+def load_library(extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, once per process and
+    set of extra flags."""
+    so, _ = build(extra_flags)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
@@ -151,9 +160,24 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+_flags: tuple[str, ...] = ()  # the library launch() uses: built with these added
+
+
+@contextlib.contextmanager
+def extra_flags(flags: tuple[str, ...]):
+    """Inside the block, :func:`launch` calls the library built with
+    ``flags`` added (a measurement build); the wrappers are unchanged."""
+    global _flags
+    saved, _flags = _flags, tuple(flags)
+    try:
+        yield
+    finally:
+        _flags = saved
+
+
 def launch(name: str, *args) -> None:
     """Call the C entry point ``name``; raise if it reports a CUDA error."""
-    lib = load_library()
+    lib = load_library(_flags)
     rc = getattr(lib, name)(*args)
     if rc != 0:
         msg = lib.oi_error_string(rc).decode("ascii", "replace")

@@ -2,14 +2,21 @@
 
 Counterparts of :mod:`openintel_tpu.ops.pallas.dense_topk`:
 
-- kernel A, ``csrc/i8_top2g.cu`` (replaces ``_turbo_kernel_i8_top2g``):
+- kernel A, ``csrc/i8_top2g_tma.cu`` (replaces ``_turbo_kernel_i8_top2g``):
   the int8 candidate pass of :func:`dense_topk_fast_i8_grouped`, the
-  default dense arm at 100k docs and more;
+  default dense arm at 100k docs and more, in two stages (per-step top-2s
+  on the TMA + wgmma stream of ``csrc/tma_stream.cuh``, then the ordered
+  group fold); the ``mma.sync`` kernel of ``csrc/i8_top2g.cu`` stays as
+  the A/B control
+  (:func:`i8_top2g_cells_v1`);
 - kernel B, ``csrc/fused_topk.cu`` (replaces ``_kernel`` of
   ``dense_topk_pallas``): the exact fused cosine top-k of
   :func:`dense_topk_pallas`, the dense arm of smaller corpora;
-- kernel D, ``csrc/turbo_f32.cu`` (replaces ``_turbo_kernel_f32``): the
-  f32/bf16 candidate cells of :func:`dense_topk_fast` (``kernel="fast"``);
+- kernel D (replaces ``_turbo_kernel_f32``): the f32/bf16 candidate cells
+  of :func:`dense_topk_fast` (``kernel="fast"``), bf16 rows on the same
+  stream (``csrc/turbo_bf16_tma.cu``), f32 rows by true-f32 FMA
+  (``csrc/turbo_f32.cu``, whose bf16 kernel stays as the A/B control,
+  :func:`fast_cells_v1`);
 - kernels E1/E2, ``csrc/turbo_i4.cu`` (replace ``_turbo_kernel_i4`` and
   ``_turbo_kernel_i4_top2``): the int4 candidate cells of
   :func:`dense_topk_fast_i4` (``kernel="int4"`` runs E2);
@@ -28,7 +35,8 @@ Each kernel has a wrapper (:func:`i8_top2g_cells`, :func:`fused_topk`,
 :func:`dot_only_cells`) and a plain twin of the same function
 (``*_plain``). A wrapper given CPU tensors runs the twin; given CUDA
 tensors it launches the kernel or raises. Each wrapper counts its launches
-in its ``launches`` attribute.
+in its ``launches`` attribute. The A/B controls (``*_v1``) have their own
+wrappers and counts; only ``chip_smoke.py`` and the card tests call them.
 
 Layout: the candidate corpora are row-major, zero-padded to a multiple of
 16,384 docs once at load (the JAX package streams the transposed
@@ -199,62 +207,146 @@ def i8_top2g_cells_plain(
         else:
             a1s = keys[:, :, 0]
             a2s = torch.zeros_like(a1s)  # sentinel: below every real key
-        g1, g2 = a1s[:, 0], a2s[:, 0]
-        s1 = torch.full_like(g1, lo)
-        s2 = torch.full_like(g1, lo)
-        for t in range(1, n_steps):
-            a1, a2 = a1s[:, t], a2s[:, t]
-            cur = torch.full_like(g1, lo + t // steps)
-            upd1 = a1 > g1
-            m = torch.minimum(g1, a1)  # displaced slot-1 loser
-            sup_m = torch.where(upd1, s1, cur)
-            c2 = torch.maximum(g2, a2)
-            sup_c2 = torch.where(a2 > g2, cur, s2)
-            g1 = torch.maximum(g1, a1)
-            s1 = torch.where(upd1, cur, s1)
-            g2 = torch.maximum(m, c2)
-            s2 = torch.where(m >= c2, sup_m, sup_c2)
-        for out, val in zip(outs, (g1, g2, s1, s2)):
+        state = _fold_steps_in_order(a1s.transpose(0, 1), a2s.transpose(0, 1), lo, steps)
+        for out, val in zip(outs, state):
             out[:, g * 128 : (g + 1) * 128] = val
     return tuple(outs)
 
 
-def i8_top2g_cells(
-    queries: torch.Tensor, corpus: torch.Tensor, *, group: int, sub: int
+def _fold_steps_in_order(a1s, a2s, lo: int, steps_per_super: int):
+    """The reference's group fold (``_turbo_kernel_i8_top2g``): the steps'
+    top-2 keys (a1s, a2s: (n_steps, ...) int32, step t in super lo + t //
+    steps_per_super) merged one after the other into (g1, g2, s1, s2).
+    Ties keep the incumbent in slot 1, and the merge is not associative, so
+    the order is part of the result."""
+    g1, g2 = a1s[0], a2s[0]
+    s1 = torch.full_like(g1, lo)
+    s2 = torch.full_like(g1, lo)
+    for t in range(1, a1s.shape[0]):
+        a1, a2 = a1s[t], a2s[t]
+        cur = torch.full_like(g1, lo + t // steps_per_super)
+        upd1 = a1 > g1
+        m = torch.minimum(g1, a1)  # displaced slot-1 loser
+        sup_m = torch.where(upd1, s1, cur)
+        c2 = torch.maximum(g2, a2)
+        sup_c2 = torch.where(a2 > g2, cur, s2)
+        g1 = torch.maximum(g1, a1)
+        s1 = torch.where(upd1, cur, s1)
+        g2 = torch.maximum(m, c2)
+        s2 = torch.where(m >= c2, sup_m, sup_c2)
+    return g1, g2, s1, s2
+
+
+def i8_step_tops_plain(
+    queries: torch.Tensor,  # (B_pad, D) int8, B_pad a multiple of 32
+    corpus: torch.Tensor,  # (N_pad, D) int8, N_pad a multiple of 16,384
+    *,
+    sub: int,  # sub-blocks per step (block_c / 128)
+) -> torch.Tensor:
+    """Plain twin of kernel A's first stage (``csrc/i8_top2g_tma.cu``).
+    Returns (n_steps, B_pad, 128, 2) int32, n_steps = n_super * 128 / sub:
+    entry (t, b, lane) holds the top-2 keys of (query b, lane) over step
+    t's ``sub`` sub-blocks (super t // (128 / sub)); slot 2 is the
+    reference's sentinel 0 when ``sub`` is 1. Keys of a step are distinct,
+    so this stage is order-free."""
+    require_true_f32()
+    b_pad = queries.shape[0]
+    n_super = corpus.shape[0] // _TURBO_UNIT
+    steps = _SUPER // sub
+    qf = queries.float()
+    out = torch.empty((n_super * steps, b_pad, 128, 2), dtype=torch.int32, device=queries.device)
+    pos = (_I8_FLAG128 + torch.arange(_SUPER, device=queries.device)).to(torch.int32)
+    for lo in range(0, n_super, _TWIN_CHUNK_SUPERS):
+        hi = min(lo + _TWIN_CHUNK_SUPERS, n_super)
+        docs = corpus[lo * _TURBO_UNIT : hi * _TURBO_UNIT].float()
+        dots = (qf @ docs.T).to(torch.int32).view(b_pad, (hi - lo) * steps, sub, 128)
+        keys = dots * 128 + pos.repeat(hi - lo).view(1, -1, sub, 1)
+        if sub > 1:
+            top2 = torch.topk(keys, 2, dim=2).values  # distinct within a step
+            a1, a2 = top2[:, :, 0], top2[:, :, 1]
+        else:
+            a1 = keys[:, :, 0]
+            a2 = torch.zeros_like(a1)
+        out[lo * steps : hi * steps] = torch.stack([a1, a2], dim=-1).transpose(0, 1)
+    return out
+
+
+def i8_fold_steps_plain(
+    steps: torch.Tensor, *, n_super: int, group: int, sub: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Kernel A (``csrc/i8_top2g.cu``) on CUDA tensors; its plain twin on
-    CPU tensors. Same contract as :func:`i8_top2g_cells_plain`."""
-    if queries.device.type == "cpu" and corpus.device.type == "cpu":
-        return i8_top2g_cells_plain(queries, corpus, group=group, sub=sub)
-    _require_cuda(queries, corpus)
+    """Plain twin of kernel A's second stage: each group's steps (from
+    :func:`i8_step_tops_plain`) folded in ascending order by the
+    reference's merge. Returns (k1, k2, s1, s2) as
+    :func:`i8_top2g_cells_plain` does."""
+    per_super = _SUPER // sub
+    b_pad = steps.shape[1]
+    ng = -(-n_super // group)
+    outs = [
+        torch.empty((b_pad, ng * 128), dtype=torch.int32, device=steps.device)
+        for _ in range(4)
+    ]
+    for g in range(ng):
+        lo = g * group
+        hi = min(lo + group, n_super)
+        part = steps[lo * per_super : hi * per_super]
+        state = _fold_steps_in_order(part[..., 0], part[..., 1], lo, per_super)
+        for out, val in zip(outs, state):
+            out[:, g * 128 : (g + 1) * 128] = val
+    return tuple(outs)
+
+
+def _check_i8_cells_operands(name, queries, corpus, sub, *, staged: bool) -> int:
+    """Kernel A's operands (both versions); returns n_super. ``staged``: the
+    32-query tile of the ``mma.sync`` kernel sits whole in shared memory."""
     b_pad, dim = queries.shape
     n_pad = corpus.shape[0]
     if queries.dtype != torch.int8 or corpus.dtype != torch.int8:
-        raise TypeError("kernel A takes int8 queries and corpus")
+        raise TypeError(f"{name} takes int8 queries and corpus")
     if corpus.shape[1] != dim or dim % 16 or b_pad % _I8_QUERY_TILE:
         raise ValueError(
-            f"kernel A needs D % 16 == 0 and B % {_I8_QUERY_TILE} == 0; got "
+            f"{name} needs D % 16 == 0 and B % {_I8_QUERY_TILE} == 0; got "
             f"queries {tuple(queries.shape)}, corpus {tuple(corpus.shape)}"
         )
     if n_pad % _TURBO_UNIT or n_pad == 0 or _SUPER % sub:
         raise ValueError(f"corpus rows {n_pad} / sub {sub} off the unit")
     if not (queries.is_contiguous() and corpus.is_contiguous()):
-        raise ValueError("kernel A takes contiguous row-major operands")
+        raise ValueError(f"{name} takes contiguous row-major operands")
     if queries.data_ptr() % 16 or corpus.data_ptr() % 16:
-        raise ValueError("kernel A reads 16-byte aligned rows")
-    if _I8_QUERY_TILE * _row_stride(dim) > _SMEM_LIMIT:
-        raise ValueError(f"D={dim} exceeds kernel A's shared memory")
-    n_super = n_pad // _TURBO_UNIT
+        raise ValueError(f"{name} reads 16-byte aligned rows")
+    if staged and _I8_QUERY_TILE * _row_stride(dim) > _SMEM_LIMIT:
+        raise ValueError(f"D={dim} exceeds {name}'s shared memory")
+    return n_pad // _TURBO_UNIT
+
+
+def _i8_cells_out(b_pad, device, n_super, group):
     ng = -(-n_super // group)
-    outs = [
-        torch.empty((b_pad, ng * 128), dtype=torch.int32, device=queries.device)
+    return [
+        torch.empty((b_pad, ng * 128), dtype=torch.int32, device=device)
         for _ in range(4)
     ]
+
+
+def i8_top2g_cells(
+    queries: torch.Tensor, corpus: torch.Tensor, *, group: int, sub: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel A (``csrc/i8_top2g_tma.cu``: TMA + wgmma per-step top-2s,
+    then the ordered group fold, both launched by one call) on CUDA
+    tensors; its plain twin on CPU tensors. Same contract as
+    :func:`i8_top2g_cells_plain`."""
+    if queries.device.type == "cpu" and corpus.device.type == "cpu":
+        return i8_top2g_cells_plain(queries, corpus, group=group, sub=sub)
+    _require_cuda(queries, corpus)
+    n_super = _check_i8_cells_operands("kernel A", queries, corpus, sub, staged=False)
+    b_pad, dim = queries.shape
+    outs = _i8_cells_out(b_pad, queries.device, n_super, group)
+    steps = torch.empty(
+        (n_super * (_SUPER // sub), b_pad, 128, 2), dtype=torch.int32, device=queries.device
+    )
     with torch.cuda.device(queries.device):
         _kernels.launch(
-            "oi_i8_top2g",
+            "oi_i8_top2g_tma",
             _kernels.ptr(queries), _kernels.ptr(corpus),
-            *map(_kernels.ptr, outs),
+            *map(_kernels.ptr, outs), _kernels.ptr(steps),
             b_pad, dim, n_super, group, sub,
             _kernels.stream_of(queries),
         )
@@ -263,6 +355,60 @@ def i8_top2g_cells(
 
 
 i8_top2g_cells.launches = 0
+
+
+def i8_fold_steps(
+    steps: torch.Tensor, *, n_super: int, group: int, sub: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel A's second stage alone (``oi_i8_fold``) on a CUDA steps
+    tensor laid out as :func:`i8_step_tops_plain` returns it; its plain
+    twin on a CPU one. For checking and timing the fold apart; the search
+    path never calls it."""
+    if steps.device.type == "cpu":
+        return i8_fold_steps_plain(steps, n_super=n_super, group=group, sub=sub)
+    _require_cuda(steps)
+    b_pad = steps.shape[1]
+    if (steps.dtype != torch.int32 or not steps.is_contiguous()
+            or steps.shape != (n_super * (_SUPER // sub), b_pad, 128, 2)):
+        raise ValueError(f"steps {tuple(steps.shape)} do not fit n_super={n_super}, sub={sub}")
+    outs = _i8_cells_out(b_pad, steps.device, n_super, group)
+    with torch.cuda.device(steps.device):
+        _kernels.launch(
+            "oi_i8_fold", _kernels.ptr(steps), *map(_kernels.ptr, outs),
+            b_pad, n_super, group, sub, _kernels.stream_of(steps),
+        )
+    i8_fold_steps.launches += 1
+    return tuple(outs)
+
+
+i8_fold_steps.launches = 0
+
+
+def i8_top2g_cells_v1(
+    queries: torch.Tensor, corpus: torch.Tensor, *, group: int, sub: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel A's ``mma.sync`` version (``csrc/i8_top2g.cu``, one warp per
+    (32 queries, 8 lanes, group)), the control of A/B runs; its plain twin
+    on CPU tensors. Same contract as :func:`i8_top2g_cells_plain`."""
+    if queries.device.type == "cpu" and corpus.device.type == "cpu":
+        return i8_top2g_cells_plain(queries, corpus, group=group, sub=sub)
+    _require_cuda(queries, corpus)
+    n_super = _check_i8_cells_operands("kernel A v1", queries, corpus, sub, staged=True)
+    b_pad, dim = queries.shape
+    outs = _i8_cells_out(b_pad, queries.device, n_super, group)
+    with torch.cuda.device(queries.device):
+        _kernels.launch(
+            "oi_i8_top2g",
+            _kernels.ptr(queries), _kernels.ptr(corpus),
+            *map(_kernels.ptr, outs),
+            b_pad, dim, n_super, group, sub,
+            _kernels.stream_of(queries),
+        )
+    i8_top2g_cells_v1.launches += 1
+    return tuple(outs)
+
+
+i8_top2g_cells_v1.launches = 0
 
 
 def dense_topk_fast_i8_grouped(
@@ -329,10 +475,11 @@ def _pad_columns(vals, ids, k_req):
     return vals, ids
 
 
-def _check_turbo_operands(name, queries, corpus, row_bytes: int) -> None:
-    """The layout kernels D and E take: contiguous 16-byte aligned rows,
-    query rows padded to the 32-query tile, the staged tile within shared
-    memory."""
+def _check_turbo_operands(name, queries, corpus, row_bytes: int, staged: bool = True) -> None:
+    """The layout kernels C, D, E and S take: contiguous 16-byte aligned
+    rows, query rows padded to the 32-query tile and, for the ``mma.sync``
+    kernels (``staged``), the staged tile within shared memory (kernel D's
+    TMA kernel streams query boxes that do not fit)."""
     b_pad, dim = queries.shape
     if corpus.shape[1] != dim or row_bytes % 16 or b_pad % _I8_QUERY_TILE:
         raise ValueError(
@@ -343,7 +490,7 @@ def _check_turbo_operands(name, queries, corpus, row_bytes: int) -> None:
         raise ValueError(f"{name} takes contiguous row-major operands")
     if queries.data_ptr() % 16 or corpus.data_ptr() % 16:
         raise ValueError(f"{name} reads 16-byte aligned rows")
-    if _I8_QUERY_TILE * _row_stride(row_bytes) > _SMEM_LIMIT:
+    if staged and _I8_QUERY_TILE * _row_stride(row_bytes) > _SMEM_LIMIT:
         raise ValueError(f"D={dim} exceeds {name}'s shared memory")
 
 
@@ -601,22 +748,22 @@ def fast_cells_plain(
     return out
 
 
-def fast_cells(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
-    """Kernel D (``csrc/turbo_f32.cu``) on CUDA tensors; its plain twin on
-    CPU tensors. Same contract as :func:`fast_cells_plain`."""
-    if queries.device.type == "cpu" and corpus.device.type == "cpu":
-        return fast_cells_plain(queries, corpus)
-    _require_cuda(queries, corpus)
+def _check_fast_operands(name, queries, corpus, *, staged: bool) -> int:
+    """Kernel D's operands (both versions); returns n_super."""
     if corpus.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"kernel D takes f32 or bf16 rows, got {corpus.dtype}")
+        raise TypeError(f"{name} takes f32 or bf16 rows, got {corpus.dtype}")
     if queries.dtype != corpus.dtype:
-        raise TypeError("kernel D takes queries of the corpus dtype")
-    b_pad, dim = queries.shape
+        raise TypeError(f"{name} takes queries of the corpus dtype")
     n_pad = corpus.shape[0]
     if n_pad % _TURBO_UNIT or n_pad == 0:
         raise ValueError(f"corpus rows {n_pad} off the 16,384-doc unit")
-    _check_turbo_operands("kernel D", queries, corpus, dim * corpus.element_size())
-    n_super = n_pad // _TURBO_UNIT
+    row_bytes = queries.shape[1] * corpus.element_size()
+    _check_turbo_operands(name, queries, corpus, row_bytes, staged=staged)
+    return n_pad // _TURBO_UNIT
+
+
+def _launch_turbo_f32(queries, corpus, n_super) -> torch.Tensor:
+    b_pad, dim = queries.shape
     out = torch.empty((b_pad, n_super * 128), dtype=torch.int32, device=queries.device)
     with torch.cuda.device(queries.device):
         _kernels.launch(
@@ -625,11 +772,52 @@ def fast_cells(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
             int(corpus.dtype == torch.bfloat16), b_pad, dim, n_super,
             _kernels.stream_of(queries),
         )
+    return out
+
+
+def fast_cells(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+    """Kernel D on CUDA tensors: bf16 rows through ``csrc/turbo_bf16_tma.cu``
+    (TMA + wgmma), f32 rows through the true-f32 FMA kernel of
+    ``csrc/turbo_f32.cu``; its plain twin on CPU tensors. Same contract as
+    :func:`fast_cells_plain`."""
+    if queries.device.type == "cpu" and corpus.device.type == "cpu":
+        return fast_cells_plain(queries, corpus)
+    _require_cuda(queries, corpus)
+    bf16 = corpus.dtype == torch.bfloat16
+    n_super = _check_fast_operands("kernel D", queries, corpus, staged=not bf16)
+    if not bf16:
+        out = _launch_turbo_f32(queries, corpus, n_super)
+    else:
+        b_pad, dim = queries.shape
+        out = torch.empty((b_pad, n_super * 128), dtype=torch.int32, device=queries.device)
+        with torch.cuda.device(queries.device):
+            _kernels.launch(
+                "oi_turbo_bf16_tma",
+                _kernels.ptr(queries), _kernels.ptr(corpus), _kernels.ptr(out),
+                b_pad, dim, n_super, _kernels.stream_of(queries),
+            )
     fast_cells.launches += 1
     return out
 
 
 fast_cells.launches = 0
+
+
+def fast_cells_v1(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+    """Kernel D's ``mma.sync`` version (``csrc/turbo_f32.cu``: bf16
+    ``mma.sync``, f32 FMA),
+    the control of A/B runs; its plain twin on CPU tensors. Same contract
+    as :func:`fast_cells_plain`."""
+    if queries.device.type == "cpu" and corpus.device.type == "cpu":
+        return fast_cells_plain(queries, corpus)
+    _require_cuda(queries, corpus)
+    n_super = _check_fast_operands("kernel D v1", queries, corpus, staged=True)
+    out = _launch_turbo_f32(queries, corpus, n_super)
+    fast_cells_v1.launches += 1
+    return out
+
+
+fast_cells_v1.launches = 0
 
 
 def dense_topk_fast(
@@ -937,19 +1125,26 @@ def _require_cuda(*tensors: torch.Tensor) -> None:
 def reset_launch_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     i8_top2g_cells.launches = 0
+    i8_top2g_cells_v1.launches = 0
+    i8_fold_steps.launches = 0
     fused_topk.launches = 0
     fast_cells.launches = 0
+    fast_cells_v1.launches = 0
     i4_cells.launches = {1: 0, 2: 0}
     i8_turbo_cells.launches = {1: 0, 2: 0}
     dot_only_cells.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches per kernel since the last reset."""
+    """Launches per kernel since the last reset (``*_v1``: the A/B controls;
+    ``i8_fold``: kernel A's second stage launched alone)."""
     return {
         "i8_top2g": i8_top2g_cells.launches,
+        "i8_top2g_v1": i8_top2g_cells_v1.launches,
+        "i8_fold": i8_fold_steps.launches,
         "fused_topk": fused_topk.launches,
         "turbo_f32": fast_cells.launches,
+        "turbo_f32_v1": fast_cells_v1.launches,
         "turbo_i4": i4_cells.launches[1],
         "turbo_i4_top2": i4_cells.launches[2],
         "turbo_i8": i8_turbo_cells.launches[1],

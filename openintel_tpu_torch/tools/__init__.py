@@ -5,4 +5,6 @@ the reference's ``scripts/bench_kernel_decomp.py``,
 Run each as ``python -m openintel_tpu_torch.tools.<name> [N_DOCS] [BATCH]
 [NB] [--device cpu]``; each module's core takes an already built corpus and
 queries, so ``chip_smoke.py`` and the tests call it directly.
+``stream_ablation`` (card only) splits the time of kernels A and D on
+their TMA + wgmma stream between the stream, the products and the fold.
 """

@@ -1,0 +1,119 @@
+"""Where the time of kernels A and D goes on the TMA + wgmma stream.
+
+Each kernel of ``csrc/tma_stream.cuh`` (A, ``csrc/i8_top2g_tma.cu``; D on
+bf16 rows, ``csrc/turbo_bf16_tma.cu``) is built three ways and timed at the
+main path's shapes:
+
+- full: as the port ships it;
+- no-fold: the fold callbacks compiled out (``-DOI_STREAM_ABLATE=1``): the
+  dots are computed and dropped, no key is formed or written;
+- stream: the wgmma products compiled out too (``-DOI_STREAM_ABLATE=2``):
+  the TMA loads, the barriers and the ring alone.
+
+Kernel A's time includes its second stage (the group fold), which the
+variants keep. The variants of a (kernel, batch) run in turns, round after
+round; a variant that takes as long as the full kernel shows that what it
+dropped is not what bounds it. Batches of 128 queries (one query tile:
+each doc tile read once per block) and 256 (two tiles, paired in 2-block
+clusters). The operands are random, made on the card from a seed; the
+variants' outputs are not results.
+
+    python -m openintel_tpu_torch.tools.stream_ablation [N_DOCS] [--reps R]
+
+Runs on the card only (the variants are CUDA builds).
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import sys
+
+import torch
+
+from openintel_tpu_torch.ops import _kernels
+from openintel_tpu_torch.ops import dense_topk as T
+from openintel_tpu_torch.tools import common
+
+VARIANTS = {"full": (), "no-fold": ("-DOI_STREAM_ABLATE=1",), "stream": ("-DOI_STREAM_ABLATE=2",)}
+CALLS = 10  # launches per sample
+
+
+def operands(n_docs: int, batch: int, device: torch.device):
+    """Random unit rows on the card: (int8 corpus, int8 queries, bf16
+    corpus, bf16 queries), the corpora padded to the 16,384-doc unit."""
+    g = torch.Generator(device=device).manual_seed(0)
+    rows = torch.randn((n_docs, common.DIM), device=device, generator=g)
+    rows /= rows.norm(dim=1, keepdim=True)
+    q = torch.randn((batch, common.DIM), device=device, generator=g)
+    q /= q.norm(dim=1, keepdim=True)
+    e8 = T.pad_corpus_rows(T.quantize_int8(rows))
+    eb = T.pad_corpus_rows(rows.bfloat16())
+    return e8, T.quantize_int8(q), eb, q.bfloat16()
+
+
+def ablate(n_docs: int, batches=(128, 256), *, reps: int) -> list[dict]:
+    """Rows (kernel, batch, variant, ms median, ms best) per call, the
+    variants timed in turns: ``reps`` rounds of CALLS launches each."""
+    device = torch.device("cuda")
+    for flags in VARIANTS.values():
+        _kernels.load_library(flags)  # build every variant before timing
+    e8, q8_all, eb, qb_all = operands(n_docs, max(batches), device)
+    group = T.auto_i8_group(n_docs, common.C)
+    sub = common.BLOCK_C // 128
+    rows = []
+    for batch in batches:
+        q8, qb = q8_all[:batch].contiguous(), qb_all[:batch].contiguous()
+        kernels = {
+            "A": lambda: T.i8_top2g_cells(q8, e8, group=group, sub=sub),
+            "D": lambda: T.fast_cells(qb, eb),
+        }
+        for kernel, fn in kernels.items():
+            samples = {name: [] for name in VARIANTS}
+            for _ in range(reps + 1):  # the first round warms up
+                for name, flags in VARIANTS.items():
+                    with _kernels.extra_flags(flags):
+                        samples[name].append(_time(fn, device))
+            for name, ms in samples.items():
+                ms = ms[1:]
+                rows.append({
+                    "kernel": kernel, "batch": batch, "variant": name,
+                    "ms_median": statistics.median(ms), "ms_best": min(ms),
+                })
+    return rows
+
+
+def _time(fn, device) -> float:
+    """Milliseconds per call over CALLS back-to-back calls (CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(device)
+    start.record()
+    for _ in range(CALLS):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / CALLS
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("n_docs", nargs="?", type=int, default=1_250_000)
+    parser.add_argument("--reps", type=int, default=5)
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("stream_ablation: needs a CUDA card", file=sys.stderr)
+        return 2
+    device = torch.device("cuda")
+    print(common.device_line(device))
+    for row in ablate(args.n_docs, reps=args.reps):
+        print(
+            f"kernel {row['kernel']} B={row['batch']} {row['variant']:<8} "
+            f"{row['ms_median']:.4f} ms median {row['ms_best']:.4f} best per call "
+            f"(N={args.n_docs}, D={common.DIM}; {args.reps} rounds of {CALLS} calls)"
+        )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

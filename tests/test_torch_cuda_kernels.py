@@ -11,7 +11,9 @@ kernel S are bit-identical to the twins' (integer arithmetic); kernel D's
 are too on dyadic operands (every
 partial sum exact), and elsewhere a cell's score moves by at most one step
 of 2**-15 (the sum order); kernel B's scores agree to 2e-6 and its ids are
-equal except where two docs' scores differ by less than 1e-5.
+equal except where two docs' scores differ by less than 1e-5. The
+redesigned kernels A and D (TMA + wgmma) are also held to their A/B
+controls (their ``mma.sync`` versions) under the same rules.
 """
 
 import numpy as np
@@ -43,10 +45,14 @@ def cuda():
 
 @pytest.mark.parametrize(
     "group,block_c,dim",
-    # dim 32: half a k chunk; 640: two passes of five chunks
-    [(1, 8192, 128), (2, 4096, 128), (3, 8192, 128), (2, 8192, 32), (3, 4096, 640)],
+    # dim 32: half a k chunk (a quarter TMA box); 640: two passes of five
+    # chunks (five boxes); 2048: queries streamed with each doc box.
+    # block_c 128, 256, 16384: one, two and 128 sub-blocks per step
+    [(1, 8192, 128), (2, 4096, 128), (3, 8192, 128), (2, 8192, 32), (3, 4096, 640),
+     (2, 128, 128), (3, 256, 128), (1, 16384, 384), (2, 8192, 2048)],
 )
 def test_kernel_a_cells_match_twin(cuda, group, block_c, dim):
+    """Kernel A (TMA + wgmma, two stages) bit for bit against its twin."""
     n = 6 * T._TURBO_UNIT + 123  # 7 supers: a short last group and super
     emb = synthetic_embeddings(n, dim=dim, seed=1)
     corpus = convert.int8_corpus(torch.from_numpy(emb).to(cuda))
@@ -97,7 +103,7 @@ def test_hybrid_int8_path_matches_twins(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dim", [64, 384])
+@pytest.mark.parametrize("dim", [64, 384, 1024])  # bf16 1024: queries streamed
 def test_kernel_d_cells_match_twin(cuda, dtype, dim):
     """Dyadic operands: cells bit-identical. Random unit rows: each cell's
     score within one step, its position equal unless the twin's two docs
@@ -261,3 +267,59 @@ def test_measurement_tools_run_on_the_card(cuda):
     for row in (*decomp, *reduce, *grouped):
         assert 0 < row["ms_best"] <= row["ms_median"]
     assert all(0.9 <= r["recall"] <= 1.0 for r in (*reduce, *grouped))
+
+
+@pytest.mark.parametrize("b", [45, 96, 256])  # pads to 64, 96 (a half-empty warpgroup), 256
+@pytest.mark.parametrize("data", ["random", "ties"])
+def test_kernel_a_new_equals_v1(cuda, data, b):
+    """The TMA + wgmma kernel A against its v1 control, bit for bit, both stages
+    alone too (the fold on the twin's steps); each launch counted apart."""
+    n = 9 * T._TURBO_UNIT + 77  # 10 supers: groups 1, 3 (short last) and 10
+    rng = np.random.default_rng(25)
+    if data == "ties":
+        e8 = torch.from_numpy(rng.integers(-1, 2, (n, 384)).astype(np.int8))
+        q8 = torch.from_numpy(rng.integers(-1, 2, (b, 384)).astype(np.int8))
+    else:
+        emb = synthetic_embeddings(n, dim=384, seed=26)
+        e8 = T.quantize_int8(torch.from_numpy(emb))
+        q8 = T.quantize_int8(torch.from_numpy(synthetic_query_embeddings(emb, b, seed=27)[0]))
+    corpus = T.pad_corpus_rows(e8.to(cuda))
+    q = T._pad_query_rows(q8.to(cuda), 32).contiguous()
+    for group, sub in ((1, 64), (3, 32), (10, 2)):
+        T.reset_launch_counts()
+        got = T.i8_top2g_cells(q, corpus, group=group, sub=sub)
+        v1 = T.i8_top2g_cells_v1(q, corpus, group=group, sub=sub)
+        folded = T.i8_fold_steps(
+            T.i8_step_tops_plain(q, corpus, sub=sub), n_super=10, group=group, sub=sub
+        )
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in T.launch_counts().items() if v}
+        assert counts == {"i8_top2g": 1, "i8_top2g_v1": 1, "i8_fold": 1}
+        for g, w, f in zip(got, v1, folded):
+            assert torch.equal(g, w) and torch.equal(f, w)
+    kv, ki = T.dense_topk_fast_i8_grouped(corpus, q8.to(cuda), k=64, n_docs=n, group=3)
+    pv, pi = T.dense_topk_fast_i8_grouped(corpus, q8.to(cuda), k=64, n_docs=n, group=3, plain=True)
+    assert ki.shape == (b, 64) and torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("b", [45, 96, 256])
+def test_kernel_d_new_against_v1(cuda, b):
+    """bf16: the TMA + wgmma kernel D against its v1 control, bit for bit on dyadic
+    operands, within a step on random rows; launches counted apart."""
+    n = 4 * T._TURBO_UNIT + 9_000  # 5 supers, the last one short
+    rng = np.random.default_rng(28)
+    emb = synthetic_embeddings(n, dim=384, seed=29)
+    for exact, rows, qs in (
+        (True, dyadic_rows(rng, n, 384), dyadic_rows(rng, b, 384)),
+        (False, emb, synthetic_query_embeddings(emb, b, seed=30)[0]),
+    ):
+        corpus = T.pad_corpus_rows(torch.from_numpy(rows).to(cuda, torch.bfloat16))
+        q = T._pad_query_rows(torch.from_numpy(qs).to(cuda, torch.bfloat16), 32).contiguous()
+        T.reset_launch_counts()
+        got, v1 = T.fast_cells(q, corpus), T.fast_cells_v1(q, corpus)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in T.launch_counts().items() if v} == {"turbo_f32": 1, "turbo_f32_v1": 1}
+        if exact:
+            assert torch.equal(got, v1)
+        decode = lambda c: (c & ~127).view(torch.float32).double()  # noqa: E731
+        assert (decode(got) - decode(v1)).abs().max() <= QUANTUM

@@ -125,3 +125,27 @@ def test_tool_commands_print_their_rows(tool, monkeypatch, capsys):
     assert any(line.startswith("timing: host clock, 1 reps of 2 sub-batches") for line in lines)
     n_rows = {kernel_decomp: 4, topk_reduce_ab: 5, grouped_ab: 2}[tool]
     assert sum("ms/sub-batch" in line for line in lines) == n_rows
+
+
+def test_stream_ablation_needs_the_card(monkeypatch, capsys):
+    """The ablation builds are CUDA variants: without a card the tool
+    refuses and prints no row."""
+    from openintel_tpu_torch.tools import stream_ablation
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert stream_ablation.main(["40000"]) == 2
+    assert capsys.readouterr().out == ""
+
+
+def test_measurement_builds_are_libraries_of_their_own():
+    """A build with extra flags (an ablation variant) is named apart from
+    the port's library, and launches reach it only inside the block."""
+    from openintel_tpu_torch.ops import _kernels
+    from openintel_tpu_torch.tools import stream_ablation
+
+    names = {_kernels.library_path(f) for f in stream_ablation.VARIANTS.values()}
+    assert len(names) == 3 and _kernels.library_path() in names
+    flags = stream_ablation.VARIANTS["stream"]
+    with _kernels.extra_flags(flags):
+        assert _kernels._flags == flags
+    assert _kernels._flags == ()
