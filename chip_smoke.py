@@ -32,7 +32,9 @@ there), then 4, 5, 8, 9, 11 (the paths):
    cells bit-identical on dyadic operands, within one score step (2**-15)
    on random rows, and the ``dense_topk_fast`` decode under the same rule,
    each decoded value its id's score truncated to a step;
-7. kernels E1/E2 (``csrc/turbo_i4.cu``) against their plain twin: cells and
+7. kernels E1/E2 (``csrc/turbo_i4_tma.cu``, TMA, an unpack in shared
+   memory and wgmma) and their A/B control, the ``mma.sync`` kernel of
+   ``csrc/turbo_i4.cu``, against their plain twin: cells and
    ``dense_topk_fast_i4`` bit-identical, slots 1 and 2, random and
    tie-heavy operands;
 8. the ``kernel="fast"`` path at full width, on phase 4's corpus and
@@ -42,8 +44,9 @@ there), then 4, 5, 8, 9, 11 (the paths):
    alone against its twin and against v1 (5 alternating rounds);
 9. the ``kernel="int4"`` path at full width, on the same corpus: kernel E2
    per sub-batch; results equal to the plain-twin path, recall@10, per-batch
-   time, E2 and E1 alone against their twin; then the public op
-   ``dense_topk_fast_i4(slots=1)`` (kernel E1) on one sub-batch;
+   time; the public op ``dense_topk_fast_i4(slots=1)`` (kernel E1) on one
+   sub-batch; E2 and E1 alone against their twin and against v1 (5
+   alternating rounds), with E2's stream and merge kernels by the profiler;
 10. kernels C1/C2 (``csrc/turbo_i8.cu``) and S (``csrc/dot_only.cu``)
    against their plain twins: cells, ``dense_topk_fast_i8`` (slots 1 and 2,
    k=32 and beyond capacity) and the wrapping lane sums bit-identical, on
@@ -60,8 +63,8 @@ zeroed just before it and read just after, and each kernel of the path
 must have launched. The line before the last is a JSON object with each
 kernel's launches (from its window), error and time beside its twin's and
 its bound (the larger of its bytes over the memory rate and its operations
-over the peak rate of their type), and for the redesigned kernels A and D
-the v1 control's median from the same run (``prev_ms``); the last line
+over the peak rate of their type), and for the redesigned kernels A, D,
+E1 and E2 the v1 control's median from the same run (``prev_ms``); the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits non-zero and
 prints no result.
 
@@ -494,13 +497,14 @@ def phase_kernel_e() -> None:
         q8 = q8.to(dev)
         q_pad = torch.cat([q8, q8.new_zeros((64 - b, DIM))])
         for slots in (1, 2):
-            got = T.i4_cells(q_pad, packed, slots=slots)
             want = T.i4_cells_plain(q_pad, packed, slots=slots)
-            if not torch.equal(got, want):
-                raise AssertionError(
-                    f"kernel E{slots} cells differ ({name}): "
-                    f"{int((got != want).sum())} cells"
-                )
+            for label, cells in (("", T.i4_cells), (" v1", T.i4_cells_v1)):
+                got = cells(q_pad, packed, slots=slots)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"kernel E{slots}{label} cells differ ({name}): "
+                        f"{int((got != want).sum())} cells"
+                    )
             for k in (256, 3 * 128 * slots + 7):
                 kv, ki = T.dense_topk_fast_i4(packed, q8, k=k, n_docs=n, slots=slots)
                 pv, pi = T.dense_topk_fast_i4(
@@ -513,7 +517,7 @@ def phase_kernel_e() -> None:
     log(
         f"phase7 kernels E1/E2: {cases} cases (slots 1/2, random and tie-heavy, "
         f"N={n}, B={b}, D={DIM}) cells and decode (k 256, capacity+7) "
-        "bit-identical to the twin"
+        "bit-identical to the twin, for the TMA + wgmma kernels and the v1 control"
     )
 
 
@@ -977,27 +981,41 @@ def phase_int4_path(corpus, card, profile: bool) -> list:
     pv, pi = e1_op(plain=True)
     assert torch.equal(e1i, pi) and torch.equal(e1v, pv), "E1 op differs from its twin"
 
-    # E2 and E1 alone at the main path's shapes
+    # E2 and E1 alone at the main path's shapes, against their v1 control
     q8 = q8.contiguous()
     out = []
     for slots, name, line in ((2, "turbo_i4_top2", 1049), (1, "turbo_i4", 1019)):
         got = T.i4_cells(q8, emb, slots=slots)
         want = T.i4_cells_plain(q8, emb, slots=slots)
         err = int((got.long() - want.long()).abs().max())
-        if err:
-            raise AssertionError(f"kernel E{slots} differs from its twin by {err}")
-        ms = cuda_ms(lambda: T.i4_cells(q8, emb, slots=slots), 10)
+        if err or not torch.equal(T.i4_cells_v1(q8, emb, slots=slots), want):
+            raise AssertionError(f"kernel E{slots} (or v1) differs from its twin by {err}")
+        new_ms, old_ms = ab_rounds(
+            lambda: T.i4_cells(q8, emb, slots=slots),
+            lambda: T.i4_cells_v1(q8, emb, slots=slots),
+        )
+        ms, v1_ms = statistics.median(new_ms), statistics.median(old_ms)
         plain_ms = cuda_ms(lambda: T.i4_cells_plain(q8, emb, slots=slots), 3)
         ops = 2.0 * q8.shape[0] * 2 * emb.shape[0] * DIM  # two docs per byte row
         limit = bound((q8, emb), (got,), ops, "int8")
+        extra = {}
+        if slots == 2:  # the stream kernel and, with parts, the merge of parts
+            split = device_split(lambda: T.i4_cells(q8, emb, slots=2))
+            extra = {
+                "stream_ms": sum(v for k, v in split.items() if "turbo_i4_tma" in k),
+                "merge_ms": sum(v for k, v in split.items() if "i4_merge" in k),
+            }
         log(
-            f"kernel E{slots} at B={BATCH}, N={N_DOCS}, D={DIM}: {ms:.3f} ms vs "
-            f"twin {plain_ms:.3f} ms, bound {limit['bound_ms']:.4f} ms "
-            f"({limit['bound_by']}) [{card}]"
+            f"kernel E{slots} at B={BATCH}, N={N_DOCS}, D={DIM}: {ab_line(new_ms, old_ms)}; "
+            + "".join(f"{k} {v:.4f} ms (profiler); " for k, v in extra.items())
+            + f"twin {plain_ms:.3f} ms; bound {limit['bound_ms']:.4f} ms "
+            f"({limit['bound_by']}), share {limit['bound_ms'] / ms:.3f} (v1 "
+            f"{limit['bound_ms'] / v1_ms:.3f}) [{card}]"
         )
         out.append(kernel_entry(
-            name, "turbo_i4.cu", f"openintel_tpu/ops/pallas/dense_topk.py:{line}",
+            name, "turbo_i4_tma.cu", f"openintel_tpu/ops/pallas/dense_topk.py:{line}",
             (counts if slots == 2 else e1_counts)[name], err, ms, plain_ms, limit,
+            prev_ms=v1_ms, **extra,
         ))
     log(f"phase9 E1 op: dense_topk_fast_i4(slots=1) at k={cw} equals its twin")
     return out

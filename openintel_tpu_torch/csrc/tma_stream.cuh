@@ -1,6 +1,6 @@
-// The Hopper corpus stream shared by kernel D's bf16 path (turbo_bf16_tma.cu)
-// and kernel A (i8_top2g_tma.cu): TMA loads into a ring of shared-memory
-// tiles, consumed by wgmma.
+// The Hopper corpus stream of kernels A (i8_top2g_tma.cu), D on bf16 rows
+// (turbo_bf16_tma.cu) and E1/E2 (turbo_i4_tma.cu): TMA loads into a ring of
+// shared-memory tiles, consumed by wgmma.
 //
 // A block holds 128 queries (two consumer warpgroups of 64) and walks work
 // units of (super, lane half, part of the super's 128 sub-blocks). A doc
@@ -20,15 +20,19 @@
 //   (up to 3 of a tile's 128-byte K boxes) cp.async.bulk.tensor loads
 //   completing on the stage's `full` mbarrier, after a wait on its
 //   `empty` mbarrier, which in a cluster counts the releases of both
-//   blocks' consumers (the peer's loads land in this block's stage too);
-//   at the end it waits for every stage's last release, so no peer still
-//   reads its loads or arrives on its barriers when the block exits;
+//   blocks (the peer's loads land in this block's stage too); at the end
+//   it waits for every stage's last release, so no peer still reads its
+//   loads or arrives on its barriers when the block exits;
 // - warps 0-7 (two warpgroups) wait on `full`, issue the stage's wgmma k
 //   steps and commit them as one group, then wait until only that group
 //   is pending (wait_group 1) and release the stage before it (one
 //   `empty` arrival per warp). Two accumulator sets take alternate
 //   sub-blocks: the kernel's fold of sub-block p - 1 runs while sub-block
-//   p's first group is on the tensor cores.
+//   p's first group is on the tensor cores;
+// - for a nibble-packed corpus (kernels E), warps 9-11 unpack each loaded
+//   box into two int8 tiles of a second ring, which the consumers read
+//   (stream_packed_tiles, below; its warpgroups split the registers 56 and
+//   224, so the unpacking loop does not spill).
 // Queries stay in shared memory for the whole kernel (one TMA load per
 // box) when they fit beside a ring of 4 stages; rows of up to 6 boxes
 // (768 bytes) are then moved once into registers as wgmma A fragments, so
@@ -49,13 +53,20 @@
 #include <cuda_runtime.h>
 
 // Measurement builds only (tools/stream_ablation.py): 1 drops the kernels'
-// fold callbacks, 2 the wgmma products too, leaving the stream alone. The
-// library the port loads is built without it (0).
+// fold callbacks, 2 the wgmma products too, leaving the stream alone (and
+// the unpack of kernels E); 3 drops kernels E's unpack alone, so wgmma
+// reads its tiles as the unpacked ring last held them; 4 drops all three,
+// leaving E's rings and barriers. The library the port loads is built
+// without it (0).
 #ifndef OI_STREAM_ABLATE
 #define OI_STREAM_ABLATE 0
 #endif
 
 namespace oi_tma {
+
+constexpr bool kFoldOn = OI_STREAM_ABLATE == 0 || OI_STREAM_ABLATE == 3;
+constexpr bool kProductsOn = OI_STREAM_ABLATE != 2 && OI_STREAM_ABLATE != 4;
+constexpr bool kUnpackOn = OI_STREAM_ABLATE != 3 && OI_STREAM_ABLATE != 4;
 
 constexpr int kBoxBytes = 128;   // K bytes per TMA box: one swizzled row
 constexpr int kQueryRows = 128;  // queries per block (two warpgroups of 64)
@@ -307,13 +318,207 @@ struct Cell {
   int col;  // tile column (doc lane - 64 h) of value 0
 };
 
-// The stream. Per unit: begin(); per sub-block of the unit (ascending pos):
-// the dots into an accumulator, then fold(acc, cell, s, half, pos); at the
-// unit's end finish(cell, s, half, part). The callbacks run only in
-// warpgroups that hold real query rows. QREGS > 0: the queries' A
-// fragments of all QREGS (= n_box) boxes sit in registers (loaded once from
-// the resident tiles), so the tensor cores read only the doc tile from
-// shared memory; 0: both operands from shared memory.
+// A ring of stages in shared memory: full[i] completes when stage i holds
+// its tiles, empty[i] when every reader has released it.
+struct Ring {
+  uint8_t* base;
+  int stage_bytes;
+  int stages;
+  uint64_t* full;
+  uint64_t* empty;
+};
+
+__device__ __forceinline__ void next_stage(uint32_t& stage, uint32_t& phase,
+                                           int stages) {
+  if (++stage == static_cast<uint32_t>(stages)) {
+    stage = 0;
+    phase ^= 1;
+  }
+}
+
+// A consumer thread's first cell (warpgroup warp / 4 owns query rows
+// 64 wg .. 64 wg + 63 of query tile qt).
+__device__ __forceinline__ Cell consumer_cell(int qt, int warp, int lane) {
+  return Cell{qt * kQueryRows + (warp >> 2) * 64 + 16 * (warp & 3) + (lane >> 2),
+              2 * (lane & 3)};
+}
+
+// The producer thread. It loads the queries once (unless they stream),
+// then walks the block's units: per tile (`tiles` per super: 128 sub-blocks
+// of docs, or 64 byte sub-tiles of a packed corpus) its doc boxes in ring
+// stages of up to g.kb boxes, with the query box when queries stream. In a
+// cluster it loads this block's half of each box's rows into both blocks.
+// At the end it waits until every stage is released by the readers of
+// every block of the cluster: then no peer still reads what this block
+// loaded, nor arrives on its barriers, and the block may exit.
+__device__ __forceinline__ void produce(const Geometry& g, const CUtensorMap* tq,
+                                        const CUtensorMap* tc, uint8_t* q_s,
+                                        uint64_t* qbar, const Ring& r, int tiles,
+                                        int qt, int cta, uint32_t rank) {
+  const int q_row = qt * kQueryRows;
+  if (!g.qstream) {
+    mbar_expect_tx(qbar, g.n_box * kQBox);
+    for (int b = 0; b < g.n_box; ++b)
+      tma_load(q_s + b * kQBox, tq, qbar, b * g.box_cols, q_row);
+  }
+  const int units = g.n_super * 2 * g.parts;
+  const int per_part = tiles / g.parts;
+  uint32_t stage = 0, phase = 0;
+  for (int u = cta; u < units; u += g.ctas_per_qt) {
+    const int part = u % g.parts;
+    const int half = (u / g.parts) & 1;
+    const int s = u / (2 * g.parts);
+    for (int t = part * per_part; t < (part + 1) * per_part; ++t) {
+      const int row0 = (s * tiles + t) * kLanes + half * kDocRows;
+      for (int b0 = 0; b0 < g.n_box; b0 += g.kb) {
+        const int nb = g.n_box - b0 < g.kb ? g.n_box - b0 : g.kb;
+        mbar_wait(&r.empty[stage], phase ^ 1);
+        uint8_t* dst = r.base + stage * r.stage_bytes;
+        mbar_expect_tx(&r.full[stage], nb * (kDBox + (g.qstream ? kQBox : 0)));
+        for (int bb = 0; bb < nb; ++bb) {
+          const int col = (b0 + bb) * g.box_cols;
+          if (g.cluster > 1)  // this block's half of the rows, to both
+            tma_load_multicast(dst + bb * kDBox + rank * (kDBox / 2), tc,
+                               &r.full[stage], col, row0 + rank * (kDocRows / 2),
+                               0x3);
+          else
+            tma_load(dst + bb * kDBox, tc, &r.full[stage], col, row0);
+        }
+        if (g.qstream)  // kb is 1
+          tma_load(dst + kDBox, tq, &r.full[stage], b0 * g.box_cols, q_row);
+        next_stage(stage, phase, r.stages);
+      }
+    }
+  }
+  for (int i = 0; i < r.stages; ++i) {
+    mbar_wait(&r.empty[stage], phase ^ 1);
+    next_stage(stage, phase, r.stages);
+  }
+}
+
+// The consumers (warps 0-7). Per unit: begin(); per sub-block pos
+// (ascending) the dots into an accumulator, then fold(acc, cell, s, half,
+// pos); at the unit's end finish(cell, s, half, part). The callbacks run
+// only in warpgroups that hold real query rows. Each stage of `r` holds
+// one sub-block's doc tile, or part of it; a warp releases a stage by one
+// arrival on its `empty` barrier in each of `release_blocks` blocks of the
+// cluster. Two accumulator sets take alternate sub-blocks, and each
+// stage's wgmma group is left running while the next is issued (wait_group
+// 1): the fold of sub-block p - 1 runs while sub-block p's first stage is
+// on the tensor cores, and a stage is released once its group is done.
+// QREGS > 0: the queries' A fragments of all QREGS (= n_box) boxes sit in
+// registers (loaded once from the resident tiles), so the tensor cores
+// read only the doc tile from shared memory; 0: both operands from shared
+// memory.
+template <int QREGS, typename Mma, typename Begin, typename Fold,
+          typename Finish>
+__device__ __forceinline__ void consume(const Geometry& g, const uint8_t* q_s,
+                                        uint64_t* qbar, const Ring& r,
+                                        int release_blocks, int qt, int cta,
+                                        Begin begin, Fold fold, Finish finish) {
+  using Acc = typename Mma::Acc;
+  constexpr int KB = boxes_per_stage(QREGS);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+  const bool live = qt * kQueryRows + wg * 64 < g.b_pad;
+  const int units = g.n_super * 2 * g.parts;
+  const int per_part = kSuper / g.parts;
+  const Cell cell = consumer_cell(qt, warp, lane);
+  Acc acc0, acc1;
+  uint32_t qa[QREGS > 0 ? 4 * QREGS : 1][4];  // [box * 4 + k step][a0..a3]
+  if (!g.qstream) mbar_wait(qbar, 0);
+  if constexpr (QREGS > 0) {
+    const int r0 = wg * 64 + 16 * (warp & 3) + (lane >> 2);
+#pragma unroll
+    for (int i = 0; i < 4 * QREGS; ++i) {
+      const uint8_t* box = q_s + (i >> 2) * kQBox;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {  // a0..a3: rows r0, r0 + 8; bytes +0, +16
+        const int row = r0 + 8 * (j & 1);
+        const int byte = 32 * (i & 3) + 4 * (lane & 3) + 16 * (j >> 1);
+        qa[i][j] = *reinterpret_cast<const uint32_t*>(
+            box + row * kBoxBytes + ((((byte >> 4) ^ (row & 7)) << 4) | (byte & 15)));
+      }
+    }
+  }
+  uint32_t stage = 0, phase = 0;
+  int held = -1;  // the stage whose wgmma group may still be running
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) {
+      if (release_blocks > 1) {
+        for (int b = 0; b < release_blocks; ++b) mbar_arrive_cluster(&r.empty[st], b);
+      } else {
+        mbar_arrive(&r.empty[st]);
+      }
+    }
+  };
+  // sub-block pos into cur; after its first stage is issued, fold prev
+  // (sub-block pos - 1) when fold_prev
+  auto run = [&](Acc& cur, Acc& prev, int pos, bool fold_prev, int s,
+                 int half) {
+#pragma unroll
+    for (int b0 = 0; b0 < (QREGS > 0 ? QREGS : g.n_box); b0 += KB) {
+      mbar_wait(&r.full[stage], phase);
+      // every k step, also in a warpgroup of padding rows and past the
+      // row's end (zero-filled): the compiler serialises a wgmma under a
+      // branch
+      const uint8_t* dtile = r.base + stage * r.stage_bytes;
+      fence_regs(cur);
+      wgmma_fence();
+      if constexpr (!kProductsOn) {
+      } else if constexpr (QREGS > 0) {
+#pragma unroll
+        for (int bb = 0; bb < KB; ++bb) {
+          if (b0 + bb >= QREGS) break;  // compile-time
+#pragma unroll
+          for (int kk = 0; kk < kBoxBytes / 32; ++kk)
+            Mma::rs(cur, qa[4 * (b0 + bb) + kk],
+                    sw128_desc(dtile + bb * kDBox + kk * 32), b0 + bb > 0 || kk > 0);
+        }
+      } else {  // one box per stage
+        const uint8_t* qtile =
+            (g.qstream ? dtile + kDBox : q_s + b0 * kQBox) + wg * (kQBox / 2);
+#pragma unroll
+        for (int kk = 0; kk < kBoxBytes / 32; ++kk)
+          Mma::ss(cur, sw128_desc(qtile + kk * 32),
+                  sw128_desc(dtile + kk * 32), b0 > 0 || kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // every group but this stage's is done
+      if (held >= 0) release(held);
+      held = static_cast<int>(stage);
+      next_stage(stage, phase, r.stages);
+      if (b0 == 0 && fold_prev) {
+        fence_regs(prev);
+        if (live && kFoldOn) fold(prev, cell, s, half, pos - 1);
+      }
+    }
+  };
+  for (int u = cta; u < units; u += g.ctas_per_qt) {
+    const int part = u % g.parts;
+    const int half = (u / g.parts) & 1;
+    const int s = u / (2 * g.parts);
+    const int first = part * per_part;  // per_part is even
+    if (live) begin();
+    for (int pos = first; pos < first + per_part; pos += 2) {
+      run(acc0, acc1, pos, pos > first, s, half);
+      run(acc1, acc0, pos + 1, true, s, half);
+    }
+    wgmma_wait<0>();
+    release(held);
+    held = -1;
+    fence_regs(acc1);
+    if (live && kFoldOn) {
+      fold(acc1, cell, s, half, first + per_part - 1);
+      finish(cell, s, half, part);
+    }
+  }
+}
+
+// The stream over a row-major corpus (kernels A and D): the producer
+// thread loads doc tiles into one ring, which the consumers read.
 template <int QREGS, typename Mma, typename Begin, typename Fold,
           typename Finish>
 __device__ __forceinline__ void stream_tiles(const Geometry& g,
@@ -321,8 +526,6 @@ __device__ __forceinline__ void stream_tiles(const Geometry& g,
                                              const CUtensorMap* tc,
                                              Begin begin, Fold fold,
                                              Finish finish) {
-  using Acc = typename Mma::Acc;
-  constexpr int KB = boxes_per_stage(QREGS);
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -332,14 +535,12 @@ __device__ __forceinline__ void stream_tiles(const Geometry& g,
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + g.stages * stage_bytes);
   uint64_t* empty = full + g.stages;
   uint64_t* qbar = empty + g.stages;
+  const Ring r{ring, stage_bytes, g.stages, full, empty};
 
   const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   const int qt = blockIdx.x % g.n_qt;  // a cluster's blocks: neighbouring qt
   const int cta = blockIdx.x / g.n_qt;
   const uint32_t rank = g.cluster > 1 ? cluster_rank() : 0;
-  const int units = g.n_super * 2 * g.parts;
-  const int per_part = kSuper / g.parts;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < g.stages; ++i) {
@@ -352,161 +553,277 @@ __device__ __forceinline__ void stream_tiles(const Geometry& g,
   cluster_sync();  // the peer's loads and arrivals may reach our barriers
 
   if (warp >= kConsumerWarps) {
-    // ---- producer warpgroup: one thread keeps the ring full ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (warp == kConsumerWarps && lane == 0) {
-      const int q_row = qt * kQueryRows;
-      if (!g.qstream) {
-        mbar_expect_tx(qbar, g.n_box * kQBox);
-        for (int b = 0; b < g.n_box; ++b)
-          tma_load(q_s + b * kQBox, tq, qbar, b * g.box_cols, q_row);
-      }
-      uint32_t stage = 0, phase = 0;
-      for (int u = cta; u < units; u += g.ctas_per_qt) {
-        const int part = u % g.parts;
-        const int half = (u / g.parts) & 1;
-        const int s = u / (2 * g.parts);
-        for (int pos = part * per_part; pos < (part + 1) * per_part; ++pos) {
-          const int row0 = (s * kSuper + pos) * kLanes + half * kDocRows;
-          for (int b0 = 0; b0 < g.n_box; b0 += g.kb) {
-            const int nb = g.n_box - b0 < g.kb ? g.n_box - b0 : g.kb;
-            mbar_wait(&empty[stage], phase ^ 1);
-            uint8_t* dst = ring + stage * stage_bytes;
-            mbar_expect_tx(&full[stage], nb * (kDBox + (g.qstream ? kQBox : 0)));
-            for (int bb = 0; bb < nb; ++bb) {
-              const int col = (b0 + bb) * g.box_cols;
-              if (g.cluster > 1)  // this block's half of the rows, to both
-                tma_load_multicast(dst + bb * kDBox + rank * (kDBox / 2), tc,
-                                   &full[stage], col, row0 + rank * (kDocRows / 2),
-                                   0x3);
-              else
-                tma_load(dst + bb * kDBox, tc, &full[stage], col, row0);
-            }
-            if (g.qstream)  // kb is 1
-              tma_load(dst + kDBox, tq, &full[stage], b0 * g.box_cols, q_row);
-            if (++stage == static_cast<uint32_t>(g.stages)) {
-              stage = 0;
-              phase ^= 1;
-            }
-          }
-        }
-      }
-      // wait until every stage is released by the consumers of every block
-      // of the cluster: then no peer still reads what this block loaded,
-      // nor arrives on its barriers, and the block may exit
-      for (int i = 0; i < g.stages; ++i) {
-        mbar_wait(&empty[stage], phase ^ 1);
-        if (++stage == static_cast<uint32_t>(g.stages)) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
-    }
+    if (warp == kConsumerWarps && (threadIdx.x & 31) == 0)
+      produce(g, tq, tc, q_s, qbar, r, kSuper, qt, cta, rank);
   } else {
-    // ---- consumers: warpgroup wg owns query rows 64 wg .. 64 wg + 63 ----
-    // Two accumulator sets take alternate sub-blocks, and each box's wgmma
-    // group is left running while the next box is issued (wait_group 1):
-    // the fold of sub-block p - 1 runs while sub-block p's first box is on
-    // the tensor cores, and a stage is released once its group is done.
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    const int wg = warp >> 2;
-    const bool live = qt * kQueryRows + wg * 64 < g.b_pad;
-    Cell cell;
-    cell.row = qt * kQueryRows + wg * 64 + 16 * (warp & 3) + (lane >> 2);
-    cell.col = 2 * (lane & 3);
-    Acc acc0, acc1;
-    uint32_t qa[QREGS > 0 ? 4 * QREGS : 1][4];  // [box * 4 + k step][a0..a3]
-    if (!g.qstream) mbar_wait(qbar, 0);
-    if constexpr (QREGS > 0) {
-      const int r0 = wg * 64 + 16 * (warp & 3) + (lane >> 2);
+    consume<QREGS, Mma>(g, q_s, qbar, r, g.cluster, qt, cta, begin, fold, finish);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The packed stream (kernels E1/E2): a nibble-packed corpus
+// ---------------------------------------------------------------------------
+//
+// The corpus is (n_super * 8192, row_bytes) bytes: byte row s * 8192 +
+// 128 t + l holds lane l of sub-block 2 t in its low nibble and of 2 t + 1
+// in its high nibble, each a signed int4. The producer loads packed boxes
+// (64 rows of byte sub-tile t, lanes 64 h .. 64 h + 63) into a packed
+// ring. wgmma has no s4 input on sm_90, so warps 9-11, idle in the stream
+// above, unpack each box once per block into two int8 tiles of an
+// unpacked ring: the low nibbles (sub-block 2 t) and the high ones
+// (2 t + 1), each nibble n as the int8 16 n. The consumers then run on
+// those tiles as on doc tiles. The 128-byte swizzle moves whole 16-byte
+// chunks by row, and each unpacked tile has the packed box's (row, byte)
+// geometry, so the unpacked byte at any offset of a tile comes from the
+// packed byte at the same offset: the unpack is a flat pass with no
+// address arithmetic.
+
+constexpr int kUnpackWarps = 3;  // warps 9-11 of the producer warpgroup
+constexpr int kUnpackThreads = 32 * kUnpackWarps;
+constexpr int kMaxUnpacked = 4;  // unpacked ring stages
+constexpr int kPackedBarBytes = 8 * (2 * kMaxStages + 2 * kMaxUnpacked + 1);
+
+// Sixteen times the signed nibbles of four packed bytes, as four int8: the
+// low nibbles moved to the top of their bytes (shift 4), or the high ones
+// left there (shift 0), the low bits cleared. 16 n lies in [-128, 112]
+// for n in [-8, 7], so the products hold 16 x each dot, exactly: the
+// kernels fold dot * 128 as acc * 8. Two or one integer ops a word.
+__device__ __forceinline__ uint32_t nibbles16(uint32_t w, int shift) {
+  return (w << shift) & 0xF0F0F0F0u;
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// Packed stage: g.kb packed boxes, then the query box when queries stream.
+__host__ __device__ inline int packed_stage_bytes(const Geometry& g) {
+  return g.kb * kDBox + (g.qstream ? kQBox : 0);
+}
+// Unpacked stage. With queries in registers (qregs > 0, one packed stage
+// per tile): one tile, its low and high halves in consecutive stages.
+// Else (g.kb = 1) one box of both tiles, then the query box when queries
+// stream.
+__host__ __device__ inline int unpacked_stage_bytes(const Geometry& g) {
+  return g.qregs > 0 ? g.kb * kDBox : 2 * kDBox + (g.qstream ? kQBox : 0);
+}
+
+// The unpacking warps. Per packed stage: wait until its boxes have landed
+// and the unpacked stage(s) are free; turn each 16 bytes of packed rows
+// into 16 bytes of low nibbles and 16 of high ones (nibbles16), four
+// chunks in flight a thread; make each thread's stores visible to wgmma's
+// async proxy and hand the tiles over (one arrival per warp, after
+// __syncwarp); then release the packed stage in every block of the
+// cluster (the multicast landed in both). SPLIT (qregs > 0): the low and
+// the high tile go to two consecutive stages, which the consumers read in
+// turn; else one stage holds one box of both, and the query box when
+// queries stream.
+template <bool SPLIT>
+__device__ __forceinline__ void unpack(const Geometry& g, const Ring& p,
+                                       const Ring& u, int cta) {
+  constexpr int kStep = 16 * kUnpackThreads;  // bytes a pass of the warps
+  const int tid = threadIdx.x - 32 * (kConsumerWarps + 1);
+  const int units = g.n_super * 2 * g.parts;
+  const int groups = (g.n_box + g.kb - 1) / g.kb;  // packed stages per tile
+  const int per_unit = kSuper / 2 / g.parts * groups;
+  const uint32_t p0 = smem_u32(p.base), u0 = smem_u32(u.base);
+  uint32_t ps = 0, pph = 0, us = 0, uph = 0;
+  for (int unit = cta; unit < units; unit += g.ctas_per_qt) {
+    for (int i = 0; i < per_unit; ++i) {
+      const int b0 = i % groups * g.kb;
+      const int nb = g.n_box - b0 < g.kb ? g.n_box - b0 : g.kb;
+      mbar_wait(&p.full[ps], pph);
+      mbar_wait(&u.empty[us], uph ^ 1);
+      if (SPLIT) mbar_wait(&u.empty[us + 1], uph ^ 1);
+      const uint32_t src = p0 + ps * p.stage_bytes;
+      const uint32_t lo = u0 + us * u.stage_bytes;
+      const uint32_t hi = lo + (SPLIT ? u.stage_bytes : kDBox);
+      if constexpr (kUnpackOn) {
+        const int n = nb * kDBox;
+        for (int c0 = 16 * tid; c0 < n; c0 += 4 * kStep) {
+          uint4 w[4];
 #pragma unroll
-      for (int i = 0; i < 4 * QREGS; ++i) {
-        const uint8_t* box = q_s + (i >> 2) * kQBox;
+          for (int j = 0; j < 4; ++j)
+            if (c0 + j * kStep < n) w[j] = lds128(src + c0 + j * kStep);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {  // a0..a3: rows r0, r0 + 8; bytes +0, +16
-          const int row = r0 + 8 * (j & 1);
-          const int byte = 32 * (i & 3) + 4 * (lane & 3) + 16 * (j >> 1);
-          qa[i][j] = *reinterpret_cast<const uint32_t*>(
-              box + row * kBoxBytes + ((((byte >> 4) ^ (row & 7)) << 4) | (byte & 15)));
-        }
-      }
-    }
-    uint32_t stage = 0, phase = 0;
-    int held = -1;  // the stage whose wgmma group may still be running
-    auto release = [&](int st) {
-      __syncwarp();
-      if (lane == 0) {
-        if (g.cluster > 1) {
-          for (int r = 0; r < g.cluster; ++r) mbar_arrive_cluster(&empty[st], r);
-        } else {
-          mbar_arrive(&empty[st]);
-        }
-      }
-    };
-    // sub-block pos into cur; after its first box is issued, fold prev
-    // (sub-block pos - 1) when fold_prev
-    auto run = [&](Acc& cur, Acc& prev, int pos, bool fold_prev, int s,
-                   int half) {
-#pragma unroll
-      for (int b0 = 0; b0 < (QREGS > 0 ? QREGS : g.n_box); b0 += KB) {
-        mbar_wait(&full[stage], phase);
-        // every k step, also in a warpgroup of padding rows and past the
-        // row's end (zero-filled): the compiler serialises a wgmma under a
-        // branch
-        const uint8_t* dtile = ring + stage * stage_bytes;
-        fence_regs(cur);
-        wgmma_fence();
-        if constexpr (OI_STREAM_ABLATE >= 2) {
-        } else if constexpr (QREGS > 0) {
-#pragma unroll
-          for (int bb = 0; bb < KB; ++bb) {
-            if (b0 + bb >= QREGS) break;  // compile-time
-#pragma unroll
-            for (int kk = 0; kk < kBoxBytes / 32; ++kk)
-              Mma::rs(cur, qa[4 * (b0 + bb) + kk],
-                      sw128_desc(dtile + bb * kDBox + kk * 32), b0 + bb > 0 || kk > 0);
+          for (int j = 0; j < 4; ++j) {
+            const int c = c0 + j * kStep;
+            if (c >= n) break;
+            sts128(lo + c, make_uint4(nibbles16(w[j].x, 4), nibbles16(w[j].y, 4),
+                                      nibbles16(w[j].z, 4), nibbles16(w[j].w, 4)));
+            sts128(hi + c, make_uint4(nibbles16(w[j].x, 0), nibbles16(w[j].y, 0),
+                                      nibbles16(w[j].z, 0), nibbles16(w[j].w, 0)));
           }
-        } else {  // one box per stage
-          const uint8_t* qtile =
-              (g.qstream ? dtile + kDBox : q_s + b0 * kQBox) + wg * (kQBox / 2);
+        }
+        if (!SPLIT && g.qstream)  // the query box, after the two tiles
+          for (int c = 16 * tid; c < kQBox; c += kStep)
+            sts128(lo + 2 * kDBox + c, lds128(src + kDBox + c));
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if ((threadIdx.x & 31) == 0) {
+        mbar_arrive(&u.full[us]);
+        if (SPLIT) mbar_arrive(&u.full[us + 1]);
+        if (g.cluster > 1) {
+          for (int b = 0; b < g.cluster; ++b) mbar_arrive_cluster(&p.empty[ps], b);
+        } else {
+          mbar_arrive(&p.empty[ps]);
+        }
+      }
+      next_stage(ps, pph, p.stages);
+      if (SPLIT) next_stage(us, uph, u.stages);  // u.stages is even
+      next_stage(us, uph, u.stages);
+    }
+  }
+}
+
+// The consumers when the queries are read from shared memory (QREGS = 0):
+// each unpacked stage holds one box of byte sub-tile t's two tiles (and
+// the query box when queries stream). Both accumulators take the box's
+// products, and sub-blocks 2 t and 2 t + 1 fold after the tile's last
+// box, with no fold under the products: the path of rows too wide for
+// query registers.
+template <typename Mma, typename Begin, typename Fold, typename Finish>
+__device__ __forceinline__ void consume_pairs(const Geometry& g,
+                                              const uint8_t* q_s,
+                                              uint64_t* qbar, const Ring& r,
+                                              int qt, int cta, Begin begin,
+                                              Fold fold, Finish finish) {
+  using Acc = typename Mma::Acc;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wg = warp >> 2;
+  const bool live = qt * kQueryRows + wg * 64 < g.b_pad;
+  const int units = g.n_super * 2 * g.parts;
+  const int per_part = kSuper / 2 / g.parts;  // byte sub-tiles per unit
+  const Cell cell = consumer_cell(qt, warp, lane);
+  Acc acc0, acc1;
+  if (!g.qstream) mbar_wait(qbar, 0);
+  uint32_t stage = 0, phase = 0;
+  int held = -1;  // the stage whose wgmma group may still be running
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&r.empty[st]);
+  };
+  for (int u = cta; u < units; u += g.ctas_per_qt) {
+    const int part = u % g.parts;
+    const int half = (u / g.parts) & 1;
+    const int s = u / (2 * g.parts);
+    if (live) begin();
+    for (int t = part * per_part; t < (part + 1) * per_part; ++t) {
+      for (int b = 0; b < g.n_box; ++b) {
+        mbar_wait(&r.full[stage], phase);
+        const uint8_t* tiles = r.base + stage * r.stage_bytes;
+        const uint8_t* qtile =
+            (g.qstream ? tiles + 2 * kDBox : q_s + b * kQBox) + wg * (kQBox / 2);
+        fence_regs(acc0);
+        fence_regs(acc1);
+        wgmma_fence();
+        if constexpr (kProductsOn) {
 #pragma unroll
           for (int kk = 0; kk < kBoxBytes / 32; ++kk)
-            Mma::ss(cur, sw128_desc(qtile + kk * 32),
-                    sw128_desc(dtile + kk * 32), b0 > 0 || kk > 0);
+            Mma::ss(acc0, sw128_desc(qtile + kk * 32), sw128_desc(tiles + kk * 32),
+                    b > 0 || kk > 0);
+#pragma unroll
+          for (int kk = 0; kk < kBoxBytes / 32; ++kk)
+            Mma::ss(acc1, sw128_desc(qtile + kk * 32),
+                    sw128_desc(tiles + kDBox + kk * 32), b > 0 || kk > 0);
         }
         wgmma_commit();
-        wgmma_wait<1>();  // every group but this stage's is done
+        wgmma_wait<1>();
         if (held >= 0) release(held);
         held = static_cast<int>(stage);
-        if (++stage == static_cast<uint32_t>(g.stages)) {
-          stage = 0;
-          phase ^= 1;
-        }
-        if (b0 == 0 && fold_prev) {
-          fence_regs(prev);
-          if (live && OI_STREAM_ABLATE == 0) fold(prev, cell, s, half, pos - 1);
-        }
-      }
-    };
-    for (int u = cta; u < units; u += g.ctas_per_qt) {
-      const int part = u % g.parts;
-      const int half = (u / g.parts) & 1;
-      const int s = u / (2 * g.parts);
-      const int first = part * per_part;  // per_part is even
-      if (live) begin();
-      for (int pos = first; pos < first + per_part; pos += 2) {
-        run(acc0, acc1, pos, pos > first, s, half);
-        run(acc1, acc0, pos + 1, true, s, half);
+        next_stage(stage, phase, r.stages);
       }
       wgmma_wait<0>();
       release(held);
       held = -1;
+      fence_regs(acc0);
       fence_regs(acc1);
-        if (live && OI_STREAM_ABLATE == 0) {
-        fold(acc1, cell, s, half, first + per_part - 1);
-        finish(cell, s, half, part);
+      if (live && kFoldOn) {
+        fold(acc0, cell, s, half, 2 * t);
+        fold(acc1, cell, s, half, 2 * t + 1);
       }
     }
+    if (live && kFoldOn) finish(cell, s, half, part);
+  }
+}
+
+// The packed stream: the producer thread fills the packed ring (p_stages
+// stages), warps 9-11 unpack it into the unpacked ring (g.stages stages),
+// and the consumers read that, with QREGS > 0 (at most 3, so a tile is one
+// stage) by `consume`, else by `consume_pairs`. Same callbacks and units as
+// stream_tiles; pos = 2 t + parity.
+template <int QREGS, typename Mma, typename Begin, typename Fold,
+          typename Finish>
+__device__ __forceinline__ void stream_packed_tiles(const Geometry& g,
+                                                    int p_stages,
+                                                    const CUtensorMap* tq,
+                                                    const CUtensorMap* tc,
+                                                    Begin begin, Fold fold,
+                                                    Finish finish) {
+  static_assert(boxes_per_stage(QREGS) == (QREGS > 0 ? QREGS : 1),
+                "a tile of the packed stream is one unpacked stage");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* q_s = base;  // resident queries: n_box boxes of 128 rows
+  uint8_t* packed = base + (g.qstream ? 0 : g.n_box * kQBox);
+  uint8_t* unpacked = packed + p_stages * packed_stage_bytes(g);
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(unpacked + g.stages * unpacked_stage_bytes(g));
+  const Ring p{packed, packed_stage_bytes(g), p_stages, bars, bars + p_stages};
+  const Ring u{unpacked, unpacked_stage_bytes(g), g.stages, bars + 2 * p_stages,
+               bars + 2 * p_stages + g.stages};
+  uint64_t* qbar = bars + 2 * (p_stages + g.stages);
+
+  const int warp = threadIdx.x >> 5;
+  const int qt = blockIdx.x % g.n_qt;
+  const int cta = blockIdx.x / g.n_qt;
+  const uint32_t rank = g.cluster > 1 ? cluster_rank() : 0;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p_stages; ++i) {
+      mbar_init(&p.full[i], 1);
+      mbar_init(&p.empty[i], kUnpackWarps * g.cluster);
+    }
+    for (int i = 0; i < g.stages; ++i) {
+      mbar_init(&u.full[i], kUnpackWarps);
+      mbar_init(&u.empty[i], kConsumerWarps);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();
+
+  // 56 registers for the unpacking loop (40 spilled it), 224 for the
+  // consumers: the 168 a thread of the launch, moved between warpgroups
+  if (warp >= kConsumerWarps) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    if (warp == kConsumerWarps) {
+      if ((threadIdx.x & 31) == 0)
+        produce(g, tq, tc, q_s, qbar, p, kSuper / 2, qt, cta, rank);
+    } else {
+      unpack<(QREGS > 0)>(g, p, u, cta);
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    if constexpr (QREGS > 0)
+      consume<QREGS, Mma>(g, q_s, qbar, u, 1, qt, cta, begin, fold, finish);
+    else
+      consume_pairs<Mma>(g, q_s, qbar, u, qt, cta, begin, fold, finish);
   }
 }
 
@@ -586,25 +903,17 @@ inline int smem_bytes(const Geometry& g) {
   return 1024 + (g.qstream ? 0 : g.n_box * kQBox) + g.stages * stage + kBarBytes;
 }
 
-// The geometry for b_pad queries of row_bytes over n_super supers. Parts per
-// super: the fewest (dividing max_parts, a power of two) that spread the
-// units over the blocks at >= 90 % (else the most even split found).
-inline Geometry plan(int row_bytes, int elem_bytes, int b_pad, int n_super,
-                     int max_parts, int max_qreg_boxes) {
+// The shared fields of both plans, and the split of supers into parts: the
+// fewest (dividing max_parts, a power of two) that spread the units over
+// the blocks at >= 90 % (else the most even split found).
+inline Geometry plan_grid(int row_bytes, int elem_bytes, int b_pad,
+                          int n_super, int max_parts) {
   Geometry g{};
   g.row_bytes = row_bytes;
   g.box_cols = kBoxBytes / elem_bytes;
   g.n_box = (row_bytes + kBoxBytes - 1) / kBoxBytes;
   g.b_pad = b_pad;
   g.n_super = n_super;
-  g.qstream = 1024 + g.n_box * kQBox + kMinResidentStages * kDBox + kBarBytes >
-              kSmemMax;
-  g.qregs = g.qstream || g.n_box > max_qreg_boxes ? 0 : g.n_box;
-  g.kb = boxes_per_stage(g.qregs);
-  const int stage = g.kb * kDBox + (g.qstream ? kQBox : 0);
-  const int room = kSmemMax - 1024 - kBarBytes - (g.qstream ? 0 : g.n_box * kQBox);
-  g.stages = room / stage < kMaxStages ? room / stage : kMaxStages;
-
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -628,12 +937,53 @@ inline Geometry plan(int row_bytes, int elem_bytes, int b_pad, int n_super,
   return g;
 }
 
-// Launch the stream kernel: n_qt * ctas_per_qt blocks, in clusters of
-// g.cluster (neighbouring query tiles).
+// The geometry for b_pad queries of row_bytes over n_super supers.
+inline Geometry plan(int row_bytes, int elem_bytes, int b_pad, int n_super,
+                     int max_parts, int max_qreg_boxes) {
+  Geometry g = plan_grid(row_bytes, elem_bytes, b_pad, n_super, max_parts);
+  g.qstream = 1024 + g.n_box * kQBox + kMinResidentStages * kDBox + kBarBytes >
+              kSmemMax;
+  g.qregs = g.qstream || g.n_box > max_qreg_boxes ? 0 : g.n_box;
+  g.kb = boxes_per_stage(g.qregs);
+  const int stage = g.kb * kDBox + (g.qstream ? kQBox : 0);
+  const int room = kSmemMax - 1024 - kBarBytes - (g.qstream ? 0 : g.n_box * kQBox);
+  g.stages = room / stage < kMaxStages ? room / stage : kMaxStages;
+  return g;
+}
+
+// The packed stream's geometry (int8 queries, a packed corpus of row_bytes
+// per byte row): queries resident unless they leave no room for two stages
+// of each ring, in registers up to max_qreg_boxes (at most 3) boxes;
+// g.stages unpacked stages (4 split ones, else 2) and the rest of the
+// budget for the packed ring, returned in *p_stages.
+inline Geometry plan_packed(int row_bytes, int b_pad, int n_super,
+                            int max_parts, int max_qreg_boxes, int* p_stages) {
+  Geometry g = plan_grid(row_bytes, 1, b_pad, n_super, max_parts);
+  g.qstream = 1024 + kPackedBarBytes + g.n_box * kQBox + 2 * kDBox +
+                  2 * (2 * kDBox) > kSmemMax;
+  g.qregs = g.qstream || g.n_box > max_qreg_boxes ? 0 : g.n_box;
+  g.kb = boxes_per_stage(g.qregs);
+  g.stages = g.qregs > 0 ? kMaxUnpacked : 2;
+  const int room = kSmemMax - 1024 - kPackedBarBytes -
+                   (g.qstream ? 0 : g.n_box * kQBox) -
+                   g.stages * unpacked_stage_bytes(g);
+  const int fit = room / packed_stage_bytes(g);
+  *p_stages = fit < kMaxStages ? fit : kMaxStages;
+  return g;
+}
+
+inline int packed_smem_bytes(const Geometry& g, int p_stages) {
+  return 1024 + (g.qstream ? 0 : g.n_box * kQBox) +
+         p_stages * packed_stage_bytes(g) + g.stages * unpacked_stage_bytes(g) +
+         kPackedBarBytes;
+}
+
+// Launch a stream kernel with `smem` bytes of dynamic shared memory:
+// n_qt * ctas_per_qt blocks, in clusters of g.cluster (neighbouring query
+// tiles).
 template <typename... Args>
-int launch_stream(void (*kernel)(Args...), const Geometry& g,
-                  cudaStream_t stream, Args... args) {
-  const int smem = smem_bytes(g);
+int launch_stream_smem(void (*kernel)(Args...), const Geometry& g, int smem,
+                       cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -651,6 +1001,29 @@ int launch_stream(void (*kernel)(Args...), const Geometry& g,
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <typename... Args>
+int launch_stream(void (*kernel)(Args...), const Geometry& g,
+                  cudaStream_t stream, Args... args) {
+  return launch_stream_smem(kernel, g, smem_bytes(g), stream, args...);
+}
+
+template <typename T>
+__global__ void fill_kernel(T* __restrict__ out, size_t n, T v) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    out[i] = v;
+}
+
+// out[0 .. n) = v on the stream (cells that parts of a super meet in by
+// atomicMax start at INT_MIN). A template, so that only the sources that
+// call it carry the kernel.
+template <typename T>
+int fill(T* out, size_t n, T v, cudaStream_t stream) {
+  const size_t blocks = (n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096;
+  fill_kernel<T><<<(unsigned)blocks, 256, 0, stream>>>(out, n, v);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace oi_tma

@@ -41,12 +41,6 @@ namespace {
 
 using namespace oi_tma;
 
-__global__ void fill_kernel(int32_t* __restrict__ out, size_t n, int32_t v) {
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x)
-    out[i] = v;
-}
-
 template <int QREGS>
 __global__ void __launch_bounds__(kThreads, 1)
 turbo_bf16_tma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -100,12 +94,9 @@ extern "C" int oi_turbo_bf16_tma(const void* q, const void* corpus, void* out,
     return (int)cudaErrorNotSupported;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (g.parts > 1) {
-    const size_t n = (size_t)b_pad * n_super * kLanes;
-    const size_t blocks = (n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096;
-    fill_kernel<<<(unsigned)blocks, 256, 0, st>>>(static_cast<int32_t*>(out),
-                                                  n, INT_MIN);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+    const int err =
+        fill(static_cast<int32_t*>(out), (size_t)b_pad * n_super * kLanes, INT_MIN, st);
+    if (err) return err;
   }
   return with_qregs<kMaxQRegBoxes>(g, [&](auto qregs) {
     return launch_stream(turbo_bf16_tma_kernel<decltype(qregs)::value>, g, st,

@@ -17,9 +17,12 @@ Counterparts of :mod:`openintel_tpu.ops.pallas.dense_topk`:
   stream (``csrc/turbo_bf16_tma.cu``), f32 rows by true-f32 FMA
   (``csrc/turbo_f32.cu``, whose bf16 kernel stays as the A/B control,
   :func:`fast_cells_v1`);
-- kernels E1/E2, ``csrc/turbo_i4.cu`` (replace ``_turbo_kernel_i4`` and
-  ``_turbo_kernel_i4_top2``): the int4 candidate cells of
-  :func:`dense_topk_fast_i4` (``kernel="int4"`` runs E2);
+- kernels E1/E2, ``csrc/turbo_i4_tma.cu`` (replace ``_turbo_kernel_i4``
+  and ``_turbo_kernel_i4_top2``): the int4 candidate cells of
+  :func:`dense_topk_fast_i4` (``kernel="int4"`` runs E2) on the same
+  stream, each packed tile unpacked once per block in shared memory; the
+  ``mma.sync`` kernel of ``csrc/turbo_i4.cu`` stays as the A/B control
+  (:func:`i4_cells_v1`);
 - kernels C1/C2, ``csrc/turbo_i8.cu`` (replace ``_turbo_kernel_i8`` and
   ``_turbo_kernel_i8_top2``): the per-super int8 candidate cells of
   :func:`dense_topk_fast_i8`, which the candidate-pass measurement tools
@@ -83,6 +86,9 @@ _I4_SUPER_B = _SUPER // 2  # byte sub-tiles (of 128 byte rows) per super
 _I4_DIM_LIMIT = 8_000  # D below it keeps dot * 128 + _I8_FLAG128 in (0, 2**31)
 _INT32_MIN = -(2**31)
 _TWIN_CHUNK_SUPERS = 8  # supers per product in the plain twins of C, D, E, S
+# Parts a super may be split into by kernels E (E1 meets by atomicMax, E2
+# through buffers merged by a second kernel; PERF.md has E2's measurement)
+_E_MAX_PARTS = {1: 16, 2: 2}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -870,6 +876,30 @@ def dense_topk_fast(
 # ---------------------------------------------------------------------------
 
 
+def _i4_key_chunks(queries: torch.Tensor, corpus: torch.Tensor):
+    """Kernels E's keys, a few supers at a time: yields (lo, hi, keys) with
+    keys (B_pad, hi - lo, 128 pos, 128 lanes) int32 for supers lo .. hi - 1.
+    The dots run as a float32 product with TF32 off: every partial sum is
+    an integer below 2**24."""
+    require_true_f32()
+    b_pad = queries.shape[0]
+    unit_b = _TURBO_UNIT // 2
+    n_super = corpus.shape[0] // unit_b
+    qf = queries.float()
+    pos = (_I8_FLAG128 + torch.arange(_SUPER, dtype=torch.int32, device=queries.device))
+    pos = pos[None, None, :, None]
+    for lo in range(0, n_super, _TWIN_CHUNK_SUPERS):
+        hi = min(lo + _TWIN_CHUNK_SUPERS, n_super)
+        v = corpus[lo * unit_b : hi * unit_b].to(torch.int32)
+        # sign-extended nibbles (the reference's (v << 28) >> 28, (v << 24) >> 28)
+        nibbles = (((v & 15) ^ 8) - 8, v >> 4)
+        dots = torch.stack(
+            [(qf @ x.float().T).view(b_pad, hi - lo, _I4_SUPER_B, 128) for x in nibbles],
+            dim=3,
+        ).to(torch.int32)  # (b_pad, supers, byte_tile, parity, lane)
+        yield lo, hi, dots.view(b_pad, hi - lo, _SUPER, 128) * 128 + pos
+
+
 def i4_cells_plain(
     queries: torch.Tensor,  # (B_pad, D) int8, B_pad a multiple of 32
     corpus: torch.Tensor,  # (N_pad / 2, D) packed bytes (pack_corpus_i4)
@@ -883,54 +913,123 @@ def i4_cells_plain(
         key = dot * 128 + _I8_FLAG128 + pos,  pos = 2 * byte_tile + parity,
 
     for doc s * 16384 + 2 * (byte_tile * 128 + lane) + parity. A cell's keys
-    are distinct, so its top-2 is unique. The dots run as a float32 product
-    with TF32 off: every partial sum is an integer below 2**24."""
-    require_true_f32()
+    are distinct, so its top-2 is unique."""
     b_pad = queries.shape[0]
-    unit_b = _TURBO_UNIT // 2
-    n_super = corpus.shape[0] // unit_b
-    half = n_super * 128
-    dev = queries.device
-    qf = queries.float()
-    out = torch.empty((b_pad, slots * half), dtype=torch.int32, device=dev)
-    pos = (_I8_FLAG128 + torch.arange(_SUPER, dtype=torch.int32, device=dev))
-    pos = pos[None, None, :, None]
-    for lo in range(0, n_super, _TWIN_CHUNK_SUPERS):
-        hi = min(lo + _TWIN_CHUNK_SUPERS, n_super)
-        v = corpus[lo * unit_b : hi * unit_b].to(torch.int32)
-        # sign-extended nibbles (the reference's (v << 28) >> 28, (v << 24) >> 28)
-        nibbles = (((v & 15) ^ 8) - 8, v >> 4)
-        dots = torch.stack(
-            [(qf @ x.float().T).view(b_pad, hi - lo, _I4_SUPER_B, 128) for x in nibbles],
-            dim=3,
-        ).to(torch.int32)  # (b_pad, supers, byte_tile, parity, lane)
-        keys = dots.view(b_pad, hi - lo, _SUPER, 128) * 128 + pos
+    half = corpus.shape[0] // (_TURBO_UNIT // 2) * 128
+    out = torch.empty((b_pad, slots * half), dtype=torch.int32, device=queries.device)
+    for lo, hi, keys in _i4_key_chunks(queries, corpus):
         top = torch.topk(keys, slots, dim=2).values  # distinct keys
         for j in range(slots):
             out[:, j * half + lo * 128 : j * half + hi * 128] = top[:, :, j].reshape(b_pad, -1)
     return out
 
 
-def i4_cells(queries: torch.Tensor, corpus: torch.Tensor, *, slots: int) -> torch.Tensor:
-    """Kernel E1 (``slots=1``) or E2 (``slots=2``) of ``csrc/turbo_i4.cu`` on
-    CUDA tensors; their plain twin on CPU tensors. Same contract as
-    :func:`i4_cells_plain`. ``launches`` counts each slot count apart."""
+def i4_part_cells_plain(
+    queries: torch.Tensor, corpus: torch.Tensor, *, slots: int, parts: int
+) -> torch.Tensor:
+    """Plain twin of kernels E's parts before they meet (``csrc/turbo_i4_tma.cu``
+    splits each super's 128 sub-blocks into ``parts`` runs of 128 / parts).
+    Returns (parts, B_pad, slots * n_super * 128) int32: buffer p holds, in
+    :func:`i4_cells_plain`'s layout, the top ``slots`` keys of each cell
+    over pos in [p * 128 / parts, (p + 1) * 128 / parts)."""
+    if parts < 1 or _SUPER % parts or _SUPER // parts < slots:
+        raise ValueError(f"parts must divide 128 into runs of >= {slots}, got {parts}")
+    b_pad = queries.shape[0]
+    half = corpus.shape[0] // (_TURBO_UNIT // 2) * 128
+    out = torch.empty((parts, b_pad, slots * half), dtype=torch.int32, device=queries.device)
+    for lo, hi, keys in _i4_key_chunks(queries, corpus):
+        runs = keys.view(b_pad, hi - lo, parts, _SUPER // parts, 128)
+        top = torch.topk(runs, slots, dim=3).values.permute(2, 0, 1, 3, 4)
+        for j in range(slots):  # top: (parts, b_pad, supers, slot, lane)
+            out[:, :, j * half + lo * 128 : j * half + hi * 128] = (
+                top[:, :, :, j].reshape(parts, b_pad, -1)
+            )
+    return out
+
+
+def i4_merge_parts_plain(part_cells: torch.Tensor, *, slots: int) -> torch.Tensor:
+    """Plain twin of where kernels E's parts meet: the cells of
+    :func:`i4_part_cells_plain`'s buffers (disjoint key sets) merged into
+    :func:`i4_cells_plain`'s. E1 takes the max (``atomicMax``); E2 folds the
+    buffers in order by the reference's combine, ``a2 = max(min(a1, b1),
+    max(a2, b2))``, exact for distinct keys, so the order does not matter."""
+    if slots == 1:
+        return part_cells.amax(dim=0)
+    half = part_cells.shape[2] // 2
+    a1, a2 = part_cells[0, :, :half], part_cells[0, :, half:]
+    for cells in part_cells[1:]:
+        b1, b2 = cells[:, :half], cells[:, half:]
+        a2 = torch.maximum(torch.minimum(a1, b1), torch.maximum(a2, b2))
+        a1 = torch.maximum(a1, b1)
+    return torch.cat([a1, a2], dim=1)
+
+
+def _check_i4_operands(name, queries, corpus, *, staged: bool) -> int:
+    """Kernels E's operands (both versions); returns n_super. ``staged``:
+    the 32-query tile of the ``mma.sync`` kernel sits whole in shared
+    memory."""
+    if queries.dtype != torch.int8 or corpus.dtype != torch.int8:
+        raise TypeError(f"{name} take int8 queries and a packed int8 corpus")
+    dim = queries.shape[1]
+    n_packed = corpus.shape[0]
+    if n_packed % (_TURBO_UNIT // 2) or n_packed == 0 or dim >= _I4_DIM_LIMIT:
+        raise ValueError(
+            f"{name}: {n_packed} byte rows off the 8,192-row unit, or "
+            f"D={dim} not below {_I4_DIM_LIMIT}"
+        )
+    _check_turbo_operands(name, queries, corpus, dim, staged=staged)
+    return n_packed // (_TURBO_UNIT // 2)
+
+
+def i4_cells(
+    queries: torch.Tensor, corpus: torch.Tensor, *, slots: int, max_parts: int | None = None
+) -> torch.Tensor:
+    """Kernel E1 (``slots=1``) or E2 (``slots=2``) on CUDA tensors: TMA, an
+    unpack in shared memory and wgmma (``csrc/turbo_i4_tma.cu``); their
+    plain twin on CPU tensors. Same contract as :func:`i4_cells_plain`.
+    ``max_parts`` caps the parts a super is split into for an even spread
+    over the SMs (default ``_E_MAX_PARTS``); the cells do not depend on it.
+    ``launches`` counts each slot count apart."""
     if slots not in (1, 2):
         raise ValueError(f"slots must be 1 or 2, got {slots}")
     if queries.device.type == "cpu" and corpus.device.type == "cpu":
         return i4_cells_plain(queries, corpus, slots=slots)
     _require_cuda(queries, corpus)
-    if queries.dtype != torch.int8 or corpus.dtype != torch.int8:
-        raise TypeError("kernels E take int8 queries and a packed int8 corpus")
+    n_super = _check_i4_operands("kernels E", queries, corpus, staged=False)
+    max_parts = _E_MAX_PARTS[slots] if max_parts is None else max_parts
+    if max_parts < 1:
+        raise ValueError(f"max_parts must be >= 1, got {max_parts}")
     b_pad, dim = queries.shape
-    n_packed = corpus.shape[0]
-    if n_packed % (_TURBO_UNIT // 2) or n_packed == 0 or dim >= _I4_DIM_LIMIT:
-        raise ValueError(
-            f"kernels E: {n_packed} byte rows off the 8,192-row unit, or "
-            f"D={dim} not below {_I4_DIM_LIMIT}"
+    dev = queries.device
+    out = torch.empty((b_pad, slots * n_super * 128), dtype=torch.int32, device=dev)
+    # E2's parts after the first write buffers of their own; E1's meet in out
+    n_scratch = (max_parts - 1) * out.numel() if slots == 2 else 0
+    parts_out = torch.empty((n_scratch,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _kernels.launch(
+            "oi_turbo_i4_tma",
+            _kernels.ptr(queries), _kernels.ptr(corpus), _kernels.ptr(out),
+            _kernels.ptr(parts_out), slots, b_pad, dim, n_super, max_parts,
+            _kernels.stream_of(queries),
         )
-    _check_turbo_operands("kernels E", queries, corpus, dim)
-    n_super = n_packed // (_TURBO_UNIT // 2)
+    i4_cells.launches[slots] += 1
+    return out
+
+
+i4_cells.launches = {1: 0, 2: 0}
+
+
+def i4_cells_v1(queries: torch.Tensor, corpus: torch.Tensor, *, slots: int) -> torch.Tensor:
+    """Kernels E's ``mma.sync`` version (``csrc/turbo_i4.cu``), the control
+    of A/B runs; its plain twin on CPU tensors. Same contract as
+    :func:`i4_cells_plain`."""
+    if slots not in (1, 2):
+        raise ValueError(f"slots must be 1 or 2, got {slots}")
+    if queries.device.type == "cpu" and corpus.device.type == "cpu":
+        return i4_cells_plain(queries, corpus, slots=slots)
+    _require_cuda(queries, corpus)
+    n_super = _check_i4_operands("kernels E v1", queries, corpus, staged=True)
+    b_pad, dim = queries.shape
     out = torch.empty(
         (b_pad, slots * n_super * 128), dtype=torch.int32, device=queries.device
     )
@@ -940,11 +1039,11 @@ def i4_cells(queries: torch.Tensor, corpus: torch.Tensor, *, slots: int) -> torc
             _kernels.ptr(queries), _kernels.ptr(corpus), _kernels.ptr(out),
             slots, b_pad, dim, n_super, _kernels.stream_of(queries),
         )
-    i4_cells.launches[slots] += 1
+    i4_cells_v1.launches[slots] += 1
     return out
 
 
-i4_cells.launches = {1: 0, 2: 0}
+i4_cells_v1.launches = {1: 0, 2: 0}
 
 
 def dense_topk_fast_i4(
@@ -1131,6 +1230,7 @@ def reset_launch_counts() -> None:
     fast_cells.launches = 0
     fast_cells_v1.launches = 0
     i4_cells.launches = {1: 0, 2: 0}
+    i4_cells_v1.launches = {1: 0, 2: 0}
     i8_turbo_cells.launches = {1: 0, 2: 0}
     dot_only_cells.launches = 0
 
@@ -1147,6 +1247,8 @@ def launch_counts() -> dict[str, int]:
         "turbo_f32_v1": fast_cells_v1.launches,
         "turbo_i4": i4_cells.launches[1],
         "turbo_i4_top2": i4_cells.launches[2],
+        "turbo_i4_v1": i4_cells_v1.launches[1],
+        "turbo_i4_top2_v1": i4_cells_v1.launches[2],
         "turbo_i8": i8_turbo_cells.launches[1],
         "turbo_i8_top2": i8_turbo_cells.launches[2],
         "dot_only": dot_only_cells.launches,

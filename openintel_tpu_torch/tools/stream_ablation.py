@@ -1,17 +1,24 @@
-"""Where the time of kernels A and D goes on the TMA + wgmma stream.
+"""Where the time of kernels A, D, E2 and E1 goes on the TMA + wgmma stream.
 
 Each kernel of ``csrc/tma_stream.cuh`` (A, ``csrc/i8_top2g_tma.cu``; D on
-bf16 rows, ``csrc/turbo_bf16_tma.cu``) is built three ways and timed at the
-main path's shapes:
+bf16 rows, ``csrc/turbo_bf16_tma.cu``; E2 and E1, ``csrc/turbo_i4_tma.cu``)
+is built several ways and timed at the main path's shapes:
 
 - full: as the port ships it;
 - no-fold: the fold callbacks compiled out (``-DOI_STREAM_ABLATE=1``): the
   dots are computed and dropped, no key is formed or written;
 - stream: the wgmma products compiled out too (``-DOI_STREAM_ABLATE=2``):
-  the TMA loads, the barriers and the ring alone.
+  the TMA loads, the barriers and the ring alone (with E's unpack);
+- no-unpack, E only: E's unpack compiled out (``-DOI_STREAM_ABLATE=3``),
+  the products and the fold kept: wgmma reads the unpacked ring's stale
+  bytes, so the time is all this variant gives;
+- ring, E only: the unpack, the products and the fold compiled out
+  (``-DOI_STREAM_ABLATE=4``): E's TMA loads and its two rings' barriers.
 
 Kernel A's time includes its second stage (the group fold), which the
-variants keep. The variants of a (kernel, batch) run in turns, round after
+variants keep. E2 is also timed with one part per super (as built it
+splits supers into up to two, met by a merge kernel). The variants of a
+(kernel, batch) run in turns, round after
 round; a variant that takes as long as the full kernel shows that what it
 dropped is not what bounds it. Batches of 128 queries (one query tile:
 each doc tile read once per block) and 256 (two tiles, paired in 2-block
@@ -35,13 +42,21 @@ from openintel_tpu_torch.ops import _kernels
 from openintel_tpu_torch.ops import dense_topk as T
 from openintel_tpu_torch.tools import common
 
-VARIANTS = {"full": (), "no-fold": ("-DOI_STREAM_ABLATE=1",), "stream": ("-DOI_STREAM_ABLATE=2",)}
+VARIANTS = {
+    "full": (),
+    "no-fold": ("-DOI_STREAM_ABLATE=1",),
+    "stream": ("-DOI_STREAM_ABLATE=2",),
+    "no-unpack": ("-DOI_STREAM_ABLATE=3",),
+    "ring": ("-DOI_STREAM_ABLATE=4",),
+}
+STREAM = ("full", "no-fold", "stream")  # the variants of A and D
 CALLS = 10  # launches per sample
 
 
 def operands(n_docs: int, batch: int, device: torch.device):
     """Random unit rows on the card: (int8 corpus, int8 queries, bf16
-    corpus, bf16 queries), the corpora padded to the 16,384-doc unit."""
+    corpus, bf16 queries, packed int4 corpus), the corpora padded to the
+    16,384-doc unit."""
     g = torch.Generator(device=device).manual_seed(0)
     rows = torch.randn((n_docs, common.DIM), device=device, generator=g)
     rows /= rows.norm(dim=1, keepdim=True)
@@ -49,7 +64,8 @@ def operands(n_docs: int, batch: int, device: torch.device):
     q /= q.norm(dim=1, keepdim=True)
     e8 = T.pad_corpus_rows(T.quantize_int8(rows))
     eb = T.pad_corpus_rows(rows.bfloat16())
-    return e8, T.quantize_int8(q), eb, q.bfloat16()
+    e4 = T.pack_corpus_i4(T.quantize_int4(rows))
+    return e8, T.quantize_int8(q), eb, q.bfloat16(), e4
 
 
 def ablate(n_docs: int, batches=(128, 256), *, reps: int) -> list[dict]:
@@ -58,21 +74,24 @@ def ablate(n_docs: int, batches=(128, 256), *, reps: int) -> list[dict]:
     device = torch.device("cuda")
     for flags in VARIANTS.values():
         _kernels.load_library(flags)  # build every variant before timing
-    e8, q8_all, eb, qb_all = operands(n_docs, max(batches), device)
+    e8, q8_all, eb, qb_all, e4 = operands(n_docs, max(batches), device)
     group = T.auto_i8_group(n_docs, common.C)
     sub = common.BLOCK_C // 128
     rows = []
     for batch in batches:
         q8, qb = q8_all[:batch].contiguous(), qb_all[:batch].contiguous()
         kernels = {
-            "A": lambda: T.i8_top2g_cells(q8, e8, group=group, sub=sub),
-            "D": lambda: T.fast_cells(qb, eb),
+            "A": (lambda: T.i8_top2g_cells(q8, e8, group=group, sub=sub), STREAM),
+            "D": (lambda: T.fast_cells(qb, eb), STREAM),
+            "E2": (lambda: T.i4_cells(q8, e4, slots=2), tuple(VARIANTS)),
+            "E1": (lambda: T.i4_cells(q8, e4, slots=1), tuple(VARIANTS)),
+            "E2 1 part": (lambda: T.i4_cells(q8, e4, slots=2, max_parts=1), ("full",)),
         }
-        for kernel, fn in kernels.items():
-            samples = {name: [] for name in VARIANTS}
+        for kernel, (fn, names) in kernels.items():
+            samples = {name: [] for name in names}
             for _ in range(reps + 1):  # the first round warms up
-                for name, flags in VARIANTS.items():
-                    with _kernels.extra_flags(flags):
+                for name in names:
+                    with _kernels.extra_flags(VARIANTS[name]):
                         samples[name].append(_time(fn, device))
             for name, ms in samples.items():
                 ms = ms[1:]

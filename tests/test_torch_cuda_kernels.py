@@ -12,7 +12,7 @@ are too on dyadic operands (every
 partial sum exact), and elsewhere a cell's score moves by at most one step
 of 2**-15 (the sum order); kernel B's scores agree to 2e-6 and its ids are
 equal except where two docs' scores differ by less than 1e-5. The
-redesigned kernels A and D (TMA + wgmma) are also held to their A/B
+redesigned kernels A, D, E1 and E2 (TMA + wgmma) are also held to their A/B
 controls (their ``mma.sync`` versions) under the same rules.
 """
 
@@ -323,3 +323,37 @@ def test_kernel_d_new_against_v1(cuda, b):
             assert torch.equal(got, v1)
         decode = lambda c: (c & ~127).view(torch.float32).double()  # noqa: E731
         assert (decode(got) - decode(v1)).abs().max() <= QUANTUM
+
+
+@pytest.mark.parametrize("dim", [64, 384, 640, 1024, 2048])  # 640+: queries from shared memory; 2048 streamed
+@pytest.mark.parametrize("b", [45, 96, 256])
+@pytest.mark.parametrize("data", ["random", "ties"])
+def test_kernel_e_new_against_v1(cuda, data, b, dim):
+    """Kernels E1/E2 on the TMA + wgmma stream against their v1 control and
+    the twin, bit for bit, with a ragged last super; E2 also with one part
+    per super and with four (merged by the second kernel); each launch
+    counted apart."""
+    n = 2 * T._TURBO_UNIT + 5_001  # 3 supers, the last doc pairs with padding
+    rng = np.random.default_rng(31)
+    if data == "ties":  # nibbles and queries in {-1, 0, 1}
+        e4 = torch.from_numpy(rng.integers(-1, 2, (n, dim)).astype(np.int8))
+        q8 = torch.from_numpy(rng.integers(-1, 2, (b, dim)).astype(np.int8))
+    else:
+        emb = synthetic_embeddings(n, dim=dim, seed=32)
+        e4 = T.quantize_int4(torch.from_numpy(emb))
+        q8 = T.quantize_int8(torch.from_numpy(synthetic_query_embeddings(emb, b, seed=33)[0]))
+    packed = T.pack_corpus_i4(e4).to(cuda)
+    q = T._pad_query_rows(q8.to(cuda), 32).contiguous()
+    for slots, name in ((1, "turbo_i4"), (2, "turbo_i4_top2")):
+        want = T.i4_cells_plain(q, packed, slots=slots)
+        T.reset_launch_counts()
+        got, v1 = T.i4_cells(q, packed, slots=slots), T.i4_cells_v1(q, packed, slots=slots)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in T.launch_counts().items() if v}
+        assert counts == {name: 1, f"{name}_v1": 1}
+        assert torch.equal(got, want) and torch.equal(v1, want)
+    for max_parts in (1, 4):
+        assert torch.equal(T.i4_cells(q, packed, slots=2, max_parts=max_parts), want)
+    kv, ki = T.dense_topk_fast_i4(packed, q8.to(cuda), k=300, n_docs=n, slots=2)
+    pv, pi = T.dense_topk_fast_i4(packed, q8.to(cuda), k=300, n_docs=n, slots=2, plain=True)
+    assert ki.shape == (b, 300) and torch.equal(ki, pi) and torch.equal(kv, pv)

@@ -134,7 +134,8 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(_kernels.KernelBuildError, match="nvcc"):
         _kernels.build()
-    for name in ("oi_i8_top2g", "oi_turbo_f32", "oi_turbo_i4", "oi_turbo_i8", "oi_dot_only"):
+    for name in ("oi_i8_top2g", "oi_turbo_f32", "oi_turbo_i4", "oi_turbo_i4_tma",
+                 "oi_turbo_i8", "oi_dot_only"):
         with pytest.raises(_kernels.KernelBuildError, match="nvcc"):
             _kernels.launch(name)
     assert not (tmp_path / "build").exists()
@@ -148,12 +149,13 @@ def test_library_name_follows_the_sources():
     assert so.name.startswith("libopenintel_tpu_torch_") and so.suffix == ".so"
     assert {p.name for p in _kernels.sources()} == {
         "dot_only.cu", "fused_topk.cu", "i8_top2g.cu", "i8_top2g_tma.cu",
-        "turbo_bf16_tma.cu", "turbo_f32.cu", "turbo_i4.cu", "turbo_i8.cu",
+        "turbo_bf16_tma.cu", "turbo_f32.cu", "turbo_i4.cu", "turbo_i4_tma.cu",
+        "turbo_i8.cu",
     }
     assert set(_kernels._SIGNATURES) == {
         "oi_dot_only", "oi_fused_topk", "oi_i8_top2g", "oi_i8_top2g_tma",
         "oi_i8_fold", "oi_turbo_bf16_tma", "oi_turbo_f32", "oi_turbo_i4",
-        "oi_turbo_i8",
+        "oi_turbo_i4_tma", "oi_turbo_i8",
     }
     assert {p.name for p in _kernels.headers()} == {"tma_stream.cuh", "turbo_common.cuh"}
 
