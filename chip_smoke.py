@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's hybrid search on one NVIDIA card and check it.
 
-    python3 chip_smoke.py            # all phases (one card, ~90 s)
+    python3 chip_smoke.py            # all phases (one card, ~3 min)
     python3 chip_smoke.py --quick    # build + kernel-vs-twin checks only
     python3 chip_smoke.py --profile  # all phases, and a profile of each path
 
 Phases, one line of output each (any failed check raises, exit code != 0),
 run in the order 1, 2, 3, 6, 7, 10 (the kernel checks; ``--quick`` stops
-there), then 4, 5, 8, 9, 11 (the paths):
+there), then 4, 5, 12, 13, 8, 9, 11 (the paths):
 
 1. environment: the card, torch and CUDA versions, the kernel build (nvcc,
    ``openintel_tpu_torch/csrc``) and the C++ query planner;
@@ -16,8 +16,13 @@ there), then 4, 5, 8, 9, 11 (the paths):
    their plain twin:
    candidate cells bit-identical over groups {1, 2, auto}, both step
    widths, padding;
-3. kernel B (``csrc/fused_topk.cu``) against its plain twin: f32 and bf16,
-   k in {10, 32}, k > n_docs, exactly duplicated scores;
+3. kernel B (``csrc/fused_topk_v2.cu``, its ``cp.async`` ring) and its A/B
+   controls, the first version (``csrc/fused_topk.cu``) and, for bf16 at
+   k <= 32, the same call on the TMA + wgmma stream (``route="stream"``),
+   against their plain twin:
+   f32 and bf16, k in {10, 32}, k > n_docs, exactly duplicated scores, B
+   8/37/300; v2 alone at D 100 (zero-padded to 112 columns), 1,536 and at
+   k 1,024;
 4. the main path at full width: 1.25M docs x 384 (bf16 store), the hybrid
    retriever auto-selected to int8, 4 sub-batches of 256 queries through
    prepare -> run_prepared_device -> finalize_prepared; results against the
@@ -25,7 +30,19 @@ there), then 4, 5, 8, 9, 11 (the paths):
    kernel A alone against v1 (5 alternating rounds of 10 launches) and its
    fold stage alone;
 5. text requests: ``HybridRetriever.build`` on ~20k generated docs (kernel B)
-   and ``search`` on query strings, against the plain path;
+   and ``search`` on query strings, against the plain path; kernel B v2
+   against v1 at the text path's call (shape a: B=15, N=20k, f32, k=10);
+12. the small-corpus path at full width: phase 4's embeddings cut to
+   98,304 docs (its own postings index of that size), stored as bf16 and
+   as f32, the auto-selected kernel B arm, 4 sub-batches of 256; results
+   against the plain-twin path and the exact path (near-tie rule),
+   recall@10, per-batch time; kernel B v2 against v1 at shapes b (B=256,
+   N=20k, f32, k=32), c-f32 and c-bf16 (B=256, N=98,304, k=32), each with
+   its bound and the two-call yardstick ``torch.topk(torch.matmul)``, and
+   at c-bf16 the stream route against the served ring in 5 alternating
+   rounds;
+13. every arm (int8, fast, int4, pallas) at D=100 on the card, equal to its
+   plain-twin path (the feature axis zero-padded at load);
 6. kernel D (bf16: ``csrc/turbo_bf16_tma.cu``, TMA + wgmma; f32:
    ``csrc/turbo_f32.cu``) and its bf16 A/B control (``turbo_f32.cu``)
    against their plain twin, f32 and bf16:
@@ -63,12 +80,13 @@ zeroed just before it and read just after, and each kernel of the path
 must have launched. The line before the last is a JSON object with each
 kernel's launches (from its window), error and time beside its twin's and
 its bound (the larger of its bytes over the memory rate and its operations
-over the peak rate of their type), and for the redesigned kernels A, D,
-E1 and E2 the v1 control's median from the same run (``prev_ms``); the last line
+over the peak rate of their type), and for the redesigned kernels A, B, D,
+E1 and E2 the v1 control's median from the same run (``prev_ms``); kernel
+B's v1 control has a record of its own (``fused_topk_v1``); the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits non-zero and
 prints no result.
 
-With ``--profile``, phases 4, 8 and 9 each add a ``profile`` line:
+With ``--profile``, phases 4, 8, 9 and 12 (each store) add a ``profile`` line:
 ``torch.profiler`` over 3 runs of the path's sub-batches gives the device
 time per sub-batch, the largest kernels, the launches per sub-batch and the
 device's busy share of the profiled wall time (a floor: the profiler slows
@@ -104,6 +122,7 @@ from openintel_tpu_torch.ops.dense import dense_topk_xla, require_true_f32
 from openintel_tpu_torch.tools import common, grouped_ab, kernel_decomp, topk_reduce_ab
 
 N_DOCS = 1_250_000  # bench.py's per-chip shard of the 10M-doc corpus
+SMALL_DOCS = 98_304  # the largest corpus that selects kernel B (6 x 16,384 docs)
 DIM = 384
 VOCAB = 30_000
 BATCH = 256  # queries per sub-batch
@@ -341,35 +360,47 @@ def phase_kernel_b() -> None:
     base = unit_rows(rng, 20_000, DIM)
     queries = unit_rows(rng, 37, DIM)
     dup = np.concatenate([base[:500], base[:500]])  # doc i == doc i + 500
+    wide = {d: (unit_rows(rng, 9_000, d), unit_rows(rng, 37, d)) for d in (100, 1_024, 1_536)}
     checks, swaps = 0, 0
     for dtype in (torch.float32, torch.bfloat16):
         cases = [
-            (base, queries, 10), (base, queries, 32),
-            (base[:20], queries, 32),  # k > n_docs: (0.0, -1) slots
-            (dup, base[:8], 10),  # exactly equal scores, lower id first
+            (base, queries, 10, True), (base, queries, 32, True),
+            (base[:20], queries, 32, True),  # k > n_docs: (0.0, -1) slots
+            (dup, base[:8], 10, True),  # exactly equal scores, lower id first
+            (base, base[:300], 32, False),  # 64-row query tiles, a ragged last one
+            # D 100 pads to 112 columns; 1,536 and 1,024 at k 1,024: past v1
+            (*wide[100], 32, False), (*wide[1_536], 10, False), (*wide[1_536], 32, False),
+            (*wide[1_024], 1_024, False),
         ]
-        for docs, q, k in cases:
+        for docs, q, k, with_v1 in cases:
             d = torch.from_numpy(docs).to(dev, dtype)
             qq = torch.from_numpy(q).to(dev, dtype)
-            kv, ki = T.dense_topk_pallas(d, qq, k=k)
             pv, pi = T.dense_topk_pallas(d, qq, k=k, plain=True)
-            torch.cuda.synchronize()
-            assert ki.shape == (q.shape[0], k) and ki.dtype == torch.int32
-            swaps += near_tie_check(
-                kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu(), atol=ATOL
-            )
-            if docs is dup:
-                assert torch.equal(ki, pi), "duplicate scores: tie order"
-                assert (ki[:, 0] == torch.arange(8, device=dev)).all()
-                assert (ki[:, 1] == torch.arange(500, 508, device=dev)).all()
-            if k > docs.shape[0]:
-                tail = ki[:, docs.shape[0]:]
-                assert (tail == -1).all() and (kv[:, docs.shape[0]:] == 0).all()
-            checks += 1
+            kernels = [T.dense_topk_pallas] + ([T.fused_topk_v1] if with_v1 else [])
+            if dtype == torch.bfloat16 and k <= T._FUSED_STREAM_MAX_K:
+                # the same bf16 call on the TMA + wgmma stream
+                kernels.append(lambda d, qq, k: T.fused_topk(d, qq, k, route="stream"))
+            for fn in kernels:
+                kv, ki = fn(d, qq, k=k)
+                torch.cuda.synchronize()
+                assert ki.shape == (q.shape[0], k) and ki.dtype == torch.int32
+                swaps += near_tie_check(
+                    kv.cpu(), ki.cpu(), pv.cpu(), pi.cpu(), atol=ATOL
+                )
+                if docs is dup:
+                    assert torch.equal(ki, pi), "duplicate scores: tie order"
+                    assert (ki[:, 0] == torch.arange(8, device=dev)).all()
+                    assert (ki[:, 1] == torch.arange(500, 508, device=dev)).all()
+                if k > docs.shape[0]:
+                    tail = ki[:, docs.shape[0]:]
+                    assert (tail == -1).all() and (kv[:, docs.shape[0]:] == 0).all()
+                checks += 1
     log(
-        f"phase3 kernel B: {checks} cases (f32/bf16, k 10/32, k > n_docs, "
-        f"duplicate scores) match the twin (scores atol {ATOL}, "
-        f"{swaps} near-tie swaps < {TIE})"
+        f"phase3 kernel B: {checks} cases (f32/bf16, v2 and its v1 control, bf16 "
+        f"at k <= 32 on the ring and on the stream; k 10/32, k > n_docs, "
+        f"duplicate scores, B 37/300/8, D 384, and v2 alone at D 100 (padded "
+        f"to 112), 1,536 (k 10/32) and 1,024 at k 1,024) match the twin "
+        f"(scores atol {ATOL}, {swaps} near-tie swaps < {TIE})"
     )
 
 
@@ -606,13 +637,13 @@ def build_corpus():
         f"setup: {N_DOCS} docs (nnz {index.nnz:,}) x {DIM} bf16, "
         f"{N_BATCHES} x {BATCH} queries ({time.perf_counter() - t0:.1f}s)"
     )
-    return index, dense, term_ids, q
+    return index, dense, term_ids, q, emb
 
 
 def build_path(corpus, kernel):
     """A hybrid retriever over the shared corpus on the card (``kernel``
     None: the auto-select) and its prepared query batch."""
-    index, dense, term_ids, q = corpus
+    index, dense, term_ids, q = corpus[:4]
     t0 = time.perf_counter()
     retr = HybridRetriever(
         index, dense, kernel=kernel, device="cuda", device_batch=BATCH
@@ -656,12 +687,12 @@ def drive(retr, prep):
     return res, time.perf_counter() - t0
 
 
-def check_result(res) -> None:
+def check_result(res, n_docs: int = N_DOCS) -> None:
     n_q = BATCH * N_BATCHES
     ids, scores = res.ids, res.scores
     assert ids.shape == (n_q, K) and scores.shape == (n_q, K)
     assert np.isfinite(scores).all()
-    assert ((ids >= -1) & (ids < N_DOCS)).all() and (ids[:, 0] >= 0).all()
+    assert ((ids >= -1) & (ids < n_docs)).all() and (ids[:, 0] >= 0).all()
 
 
 def plain_result(retr, prep):
@@ -824,6 +855,70 @@ def phase_int8_path(corpus, card, profile: bool) -> dict:
     )
 
 
+def time_b_shape(label, rows, q, k, card) -> dict:
+    """Kernel B v2 against its v1 control at one shape: both checked
+    against the twin, then 5 alternating rounds of 10 launches each, the
+    twin's time, the bound, and the two-call yardstick (a product and a
+    top-k, not the same tie rule; the port never calls it)."""
+    kind = "bf16" if rows.dtype == torch.bfloat16 else "f32"
+    want = T.fused_topk_plain(rows, q, k)
+    # bf16 at k <= 32 may also run on the stream: the same call, timed
+    # against the served ring in rounds of its own
+    on_stream = kind == "bf16" and k <= T._FUSED_STREAM_MAX_K
+    stream = lambda: T.fused_topk(rows, q, k, route="stream")  # noqa: E731
+    errs = []
+    for fn in (T.fused_topk, T.fused_topk_v1):
+        got = fn(rows, q, k)
+        near_tie_check(*(t.cpu() for t in (*got, *want)), atol=ATOL)
+        same = got[1] == want[1]
+        errs.append(float((got[0] - want[0]).abs()[same].max()))
+    new_ms, old_ms = ab_rounds(lambda: T.fused_topk(rows, q, k), lambda: T.fused_topk_v1(rows, q, k))
+    split = device_split(lambda: T.fused_topk(rows, q, k))
+    v1_split = device_split(lambda: T.fused_topk_v1(rows, q, k))
+    partial_ms = sum(ms for name, ms in split.items() if "fused_topk_v2_partial" in name)
+    merge_ms = sum(ms for name, ms in split.items() if "fused_topk_v2_merge" in name)
+    v1_device_ms = sum(ms for name, ms in v1_split.items() if "fused_topk_" in name)
+    plain_ms = cuda_ms(lambda: T.fused_topk_plain(rows, q, k), 3)
+    limit = bound((q, rows), want, product_ops(q, rows), kind)
+    composite = cuda_ms(lambda: torch.topk(torch.matmul(q, rows.T), k), 10)
+    ms, v1_ms = statistics.median(new_ms), statistics.median(old_ms)
+    ring_note, ring_fields = "", {}
+    if on_stream:
+        got = stream()
+        near_tie_check(*(t.cpu() for t in (*got, *want)), atol=ATOL)
+        st_ms, ring_ms = ab_rounds(stream, lambda: T.fused_topk(rows, q, k))
+        st_split = device_split(stream)
+        st_dev = sum(ms for name, ms in st_split.items() if "fused_topk_v2_" in name)
+        rounds = ", ".join(f"{a:.4f}/{r:.4f}" for a, r in zip(st_ms, ring_ms))
+        wins = sum(a < r for a, r in zip(st_ms, ring_ms))
+        ring_note = (
+            f"; stream (route='stream') vs the served ring: median "
+            f"{statistics.median(st_ms):.4f} vs {statistics.median(ring_ms):.4f} ms "
+            f"(rounds stream/ring: {rounds}; stream faster in {wins} of {len(st_ms)}), "
+            f"stream device {st_dev:.4f} ms (tma kernel + merge)"
+        )
+        ring_fields = {
+            "stream_ms": statistics.median(st_ms), "stream_rounds": st_ms,
+            "ring_rounds": ring_ms, "stream_device_ms": st_dev,
+        }
+    log(
+        f"kernel B shape {label}: B={q.shape[0]}, N={rows.shape[0]}, D={rows.shape[1]} "
+        f"{kind}, k={k}: {ab_line(new_ms, old_ms)}; "
+        f"device time per call (profiler): partial {partial_ms:.4f} ms + merge "
+        f"{merge_ms:.4f} ms (v1 {v1_device_ms:.4f} ms); twin {plain_ms:.3f} ms; bound "
+        f"{limit['bound_ms']:.4f} ms ({limit['bound_by']}), share "
+        f"{limit['bound_ms'] / ms:.3f} (v1 {limit['bound_ms'] / v1_ms:.3f}); two "
+        f"calls, not the same tie rule: torch.topk(torch.matmul) {composite:.4f} ms"
+        f"{ring_note} [{card}]"
+    )
+    return {
+        "ms": ms, "v1_ms": v1_ms, "rounds": new_ms, "v1_rounds": old_ms,
+        "plain_ms": plain_ms, "composite_ms": composite, "err": errs[0],
+        "partial_ms": partial_ms, "merge_ms": merge_ms, "v1_device_ms": v1_device_ms,
+        "v1_err": errs[1], **ring_fields, **limit,
+    }
+
+
 def phase_text(card) -> dict:
     docs, text_queries = text_corpus()
 
@@ -841,27 +936,152 @@ def phase_text(card) -> dict:
     )
     plain5 = plain_result(text_retr, prep5)
     swaps5 = near_tie_check(text_res.scores, text_res.ids, plain5.scores, plain5.ids)
-    qd = prep5.queries[0]
-    rows = text_retr.dense._emb_device
-    bv, bi = T.fused_topk(rows, qd, K)
-    pv, pi = T.fused_topk_plain(rows, qd, K)
-    b_err = float((bv - pv).abs().max())
-    near_tie_check(bv.cpu(), bi.cpu(), pv.cpu(), pi.cpu(), atol=ATOL)
-    b_ms = cuda_ms(lambda: T.fused_topk(rows, qd, K), 20)
-    b_plain_ms = cuda_ms(lambda: T.fused_topk_plain(rows, qd, K), 20)
-    limit = bound((qd, rows), (bv, bi), product_ops(qd, rows), "f32")
-    product = cuda_ms(lambda: torch.matmul(qd, rows.T), 20)
     log(
         f"phase5 text: {len(docs)} docs, {len(text_queries)} queries, kernel "
         f"B launches {counts['fused_topk']}, results vs plain path near-tie swaps "
-        f"{swaps5}; kernel B at B={qd.shape[0]}, N={len(docs)}, D={DIM} f32, "
-        f"k={K}: {b_ms:.3f} ms vs twin {b_plain_ms:.3f} ms, bound "
-        f"{limit['bound_ms']:.4f} ms ({limit['bound_by']}); {PRODUCT_NOTE} "
-        f"torch.matmul {product:.3f} ms [{card}]"
+        f"{swaps5} [{card}]"
     )
-    return kernel_entry(
-        "fused_topk", "fused_topk.cu", "openintel_tpu/ops/pallas/dense_topk.py:62",
-        counts["fused_topk"], b_err, b_ms, b_plain_ms, limit,
+    # shape a: the text path's own call
+    return time_b_shape("a", text_retr.dense._emb_device, prep5.queries[0], K, card)
+
+
+def small_corpus(corpus):
+    """The small-corpus path's corpus: phase 4's embeddings and generator
+    settings cut to SMALL_DOCS rows, its own postings index of that size,
+    and N_BATCHES x BATCH queries near its docs."""
+    _, _, term_ids, _, emb = corpus
+    t0 = time.perf_counter()
+    index = synthetic_postings_index(SMALL_DOCS, vocab_size=VOCAB, seed=0)
+    index.ensure_impact_order()
+    rng = np.random.default_rng(2)
+    rows = emb[:SMALL_DOCS]
+    targets = rng.integers(0, SMALL_DOCS, size=len(term_ids))
+    q = rows[targets] + 0.6 * rng.standard_normal((len(term_ids), DIM)).astype(np.float32)
+    q /= np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+    log(f"setup small corpus: {SMALL_DOCS} docs (nnz {index.nnz:,}) x {DIM} ({time.perf_counter() - t0:.1f}s)")
+    return index, rows, term_ids, q
+
+
+def phase_small_path(corpus, card, profile: bool) -> tuple[dict, dict]:
+    """The small-corpus hybrid path: SMALL_DOCS docs stored as bf16 and as
+    f32, the auto-selected kernel B arm, 4 sub-batches of 256. Returns the
+    shapes b, c-f32 and c-bf16 timed against v1, and each store's counts."""
+    index, emb, term_ids, q = small_corpus(corpus)
+    shapes, windows = {}, {}
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        dense = DenseIndex.from_embeddings(emb, dtype=dtype)
+        retr, prep = build_path((index, dense, term_ids, q, None), None)
+        if retr.kernel != "pallas":
+            raise AssertionError(f"auto-select gave {retr.kernel}, not pallas")
+        (res, first_s), counts = counted(lambda: drive(retr, prep))
+        expect_launches(counts, fused_topk=N_BATCHES)
+        windows[name] = counts
+        check_result(res, SMALL_DOCS)
+        plain = plain_result(retr, prep)
+        swaps = near_tie_check(res.scores, res.ids, plain.scores, plain.ids)
+        rows = retr.dense._emb_device
+        q32 = torch.from_numpy(q).cuda().view(N_BATCHES, BATCH, DIM)
+        # the exact dense arm on the served queries (the store's dtype):
+        # equal up to near-ties; on f32 queries (phase 4's protocol): recall
+        ev, ei = exact_scores(retr, prep, rows, prep.queries)
+        near = near_tie_check(res.scores, res.ids, ev, ei)
+        recall = recall_at_k(res.ids, ei)
+        recall_f32q = recall_at_k(res.ids, exact_hybrid(retr, prep, rows, q32))
+        per_batch = step_ms(retr, prep, False, 15)
+        plain_per_batch = step_ms(retr, prep, True, 3)
+        log(
+            f"phase12 small-corpus path ({name} store): {BATCH * N_BATCHES} queries in "
+            f"{first_s:.3f}s (first run), kernel B launches {counts['fused_topk']} "
+            f"(v1 {counts['fused_topk_v1']}), results vs plain path near-tie swaps "
+            f"{swaps}; recall@{K} vs exact path {recall:.4f} ({near} ranks differ, "
+            f"each a near-tie; {recall_f32q:.4f} against f32 queries); median "
+            f"per-batch (B={BATCH}) {per_batch:.3f} ms with "
+            f"kernels, {plain_per_batch:.3f} ms with twins [{card}]"
+        )
+        if profile:
+            log(f"profile small {name}: {profile_step(retr, prep)} [{card}]")
+        qd = prep.queries[0].contiguous()
+        if name == "f32":
+            shapes["b"] = time_b_shape("b", rows[:20_000], qd, C_ARM, card)
+        shapes[f"c_{name}"] = time_b_shape(f"c-{name}", rows, qd, C_ARM, card)
+        del retr, prep, dense
+        free_device()
+    return shapes, windows
+
+
+def exact_scores(retr, prep, rows, q32):
+    """The exact path's fused (scores, ids), for the near-tie rule."""
+    out_v, out_i = [], []
+    c = prep.candidates_per_arm
+    for i in range(prep.queries.shape[0]):
+        d_vals, d_ids = dense_topk_xla(rows, q32[i], c)
+        b_vals, b_ids = bm25_topk_device(
+            prep.plan_doc_ids[i], prep.plan_weights[i], retr.n_docs, c,
+            presorted=prep.presorted, max_run=prep.max_run,
+        )
+        v, ids = retr._fuse_arms(b_vals, b_ids, d_vals, d_ids, prep.k)
+        out_v.append(v)
+        out_i.append(ids)
+    return (
+        torch.stack(out_v).cpu().numpy().reshape(-1, prep.k),
+        torch.stack(out_i).cpu().numpy().reshape(-1, prep.k),
+    )
+
+
+def b_entries(shapes, windows) -> list:
+    """The ``kernels`` records of kernel B v2 and its v1 control: the
+    numbers at shape c-f32 (the served sub-batch on the largest corpus that
+    selects kernel B), every shape under ``shapes``; launches from the
+    small-corpus path's window (bf16 store; the f32 store's alike)."""
+    c = shapes["c_f32"]
+    per_shape = {
+        label: {
+            key: sh[key]
+            for key in ("ms", "v1_ms", "plain_ms", "bound_ms", "bound_by", "composite_ms",
+                        "partial_ms", "merge_ms", "v1_device_ms", "stream_ms", "stream_device_ms")
+            if key in sh
+        }
+        for label, sh in shapes.items()
+    }
+    limit = {"bound_ms": c["bound_ms"], "bound_by": c["bound_by"]}
+    replaces = "openintel_tpu/ops/pallas/dense_topk.py:62"
+    return [
+        kernel_entry(
+            "fused_topk", "fused_topk_v2.cu", replaces, windows["bf16"]["fused_topk"],
+            c["err"], c["ms"], c["plain_ms"], limit, prev_ms=c["v1_ms"], shapes=per_shape,
+            launches_f32_store=windows["f32"]["fused_topk"],
+        ),
+        kernel_entry(
+            "fused_topk_v1", "fused_topk.cu", replaces, windows["bf16"]["fused_topk_v1"],
+            c["v1_err"], c["v1_ms"], c["plain_ms"], limit,
+        ),
+    ]
+
+
+def phase_misfit_width(card) -> None:
+    """F1 on the card: every arm serves D = 100 (padded to 112 columns at
+    load, queries per call), equal to its plain-twin path on dyadic rows
+    (every sum exact)."""
+    rng = np.random.default_rng(12)
+    n, dim = 40_000, 100
+    index = synthetic_postings_index(n, vocab_size=2_000, seed=5)
+    emb = dyadic_rows(rng, n, dim)
+    q = dyadic_rows(rng, 70, dim)
+    term_ids = [list(rng.integers(20, 2_000, size=3)) for _ in range(70)]
+    arms = {"int8": "i8_top2g", "fast": "turbo_f32", "int4": "turbo_i4_top2", "pallas": "fused_topk"}
+    for kernel, counter in arms.items():
+        dense = DenseIndex.from_embeddings(emb, dtype=torch.bfloat16)
+        retr = HybridRetriever(index, dense, kernel=kernel, device="cuda", device_batch=32)
+        prep = retr.prepare(term_ids, q, k=K, candidates_per_arm=C_ARM)
+        (res, _), counts = counted(lambda: drive(retr, prep))
+        expect_launches(counts, **{counter: prep.queries.shape[0]})
+        plain = plain_result(retr, prep)
+        if not (np.array_equal(res.ids, plain.ids) and np.array_equal(res.scores, plain.scores)):
+            raise AssertionError(f"D={dim}: the {kernel} path differs from its plain path")
+        assert retr.dense._emb_device.shape[1] == T.padded_dim(dim)
+    log(
+        f"phase13 misfit width: D={dim} (padded to {T.padded_dim(dim)}), N={n}, 70 "
+        f"queries: the int8, fast, int4 and pallas paths equal their plain paths [{card}]"
     )
 
 
@@ -1026,7 +1246,7 @@ def phase_measurement(corpus, card) -> list:
     4's corpus and queries (the stored bf16 rows, their int8 corpus), with
     kernels C1, C2, S and A in one counted window."""
     dev = torch.device("cuda")
-    _, dense, _, q = corpus
+    _, dense, _, q = corpus[:4]
     rows = convert.stored_rows(dense, dev)
     i8 = convert.int8_corpus(rows)
     qfs = torch.from_numpy(q).to(dev).view(MEASURE_NB, -1, DIM)
@@ -1132,7 +1352,12 @@ def run(quick: bool, profile: bool) -> None:
     corpus = build_corpus()
     kernels = [phase_int8_path(corpus, card, profile)]
     free_device()
-    kernels.append(phase_text(card))
+    shapes = {"a": phase_text(card)}
+    free_device()
+    small_shapes, windows = phase_small_path(corpus, card, profile)
+    shapes.update(small_shapes)
+    kernels += b_entries(shapes, windows)
+    phase_misfit_width(card)
     free_device()
     kernels.append(phase_fast_path(corpus, card, profile))
     free_device()
@@ -1148,7 +1373,7 @@ def run(quick: bool, profile: bool) -> None:
     if leaked:
         raise AssertionError(f"the port imported {leaked[:5]}")
     order = [
-        "i8_top2g", "fused_topk", "turbo_f32", "turbo_i4", "turbo_i4_top2",
+        "i8_top2g", "fused_topk", "fused_topk_v1", "turbo_f32", "turbo_i4", "turbo_i4_top2",
         "turbo_i8", "turbo_i8_top2", "dot_only",
     ]
     kernels.sort(key=lambda e: order.index(e["name"]))

@@ -12,7 +12,9 @@ tensors:
   ``ml_dtypes`` is needed);
 - the candidate corpora, made once at load from the stored rows
   (bf16-rounded values where the store is bf16, as the reference does) and
-  zero-padded to a multiple of 16,384 docs: kernel A's int8 rows
+  zero-padded to a multiple of 16,384 docs and their feature axis to a
+  multiple of 16 columns (:func:`pad_features`, exact: zero columns add
+  nothing to a dot): kernel A's int8 rows
   (:func:`int8_corpus`), kernel D's f32/bf16 rows (:func:`fast_corpus`)
   and kernel E's nibble-packed int4 rows (:func:`int4_corpus`), all
   row-major;
@@ -34,6 +36,8 @@ from openintel_tpu_torch.ops.dense_topk import (
     _pack_pairs,
     _round_up,
     pad_corpus_rows,
+    pad_features,
+    padded_dim,
     quantize_int4,
     quantize_int8,
 )
@@ -62,37 +66,46 @@ def stored_rows(index: DenseIndex, device) -> torch.Tensor:
 
 def int8_corpus(rows: torch.Tensor, chunk: int = 1 << 16) -> torch.Tensor:
     """Kernel A's candidate corpus: ``quantize_int8`` of the stored rows,
-    (N_pad, D) int8 with zero rows up to a multiple of 16,384. Quantises
-    in chunks on the rows' device, so no full f32 copy is ever held."""
+    (N_pad, D_pad) int8 with zero rows up to a multiple of 16,384 and zero
+    columns up to a multiple of 16. Quantises in chunks on the rows'
+    device, so no full f32 copy is ever held."""
     n, dim = rows.shape
     n_pad = _round_up(max(n, _TURBO_UNIT), _TURBO_UNIT)
-    out = torch.zeros((n_pad, dim), dtype=torch.int8, device=rows.device)
+    out = torch.zeros((n_pad, padded_dim(dim)), dtype=torch.int8, device=rows.device)
     for start in range(0, n, chunk):
         stop = min(start + chunk, n)
-        out[start:stop] = quantize_int8(rows[start:stop])
+        out[start:stop, :dim] = quantize_int8(rows[start:stop])
     return out
 
 
-# Kernel D's candidate corpus: the stored (N, D) f32/bf16 rows with zero rows
-# up to a multiple of 16,384, on the rows' device (the row-major form of the
-# reference's padded transposed operand).
-fast_corpus = pad_corpus_rows
+def fast_corpus(rows: torch.Tensor) -> torch.Tensor:
+    """Kernel D's candidate corpus: the stored (N, D) f32/bf16 rows with zero
+    rows up to a multiple of 16,384 and zero columns up to a multiple of
+    16, on the rows' device (the row-major form of the reference's padded
+    transposed operand); the rows themselves when they fit already."""
+    return pad_corpus_rows(rows, padded_dim(rows.shape[1]))
+
+
+def fused_corpus(rows: torch.Tensor) -> torch.Tensor:
+    """Kernel B's rows: the stored (N, D) rows with zero columns up to a
+    multiple of 16 (not padded in N: kernel B masks its last doc tile)."""
+    return pad_features(rows).contiguous()
 
 
 def int4_corpus(rows: torch.Tensor, chunk: int = 1 << 16) -> torch.Tensor:
     """Kernels E's candidate corpus: ``quantize_int4`` of the stored rows,
-    zero-padded to a multiple of 16,384 docs and packed two docs per byte,
-    (N_pad / 2, D) int8 (``pack_corpus_i4``). Quantises in chunks of an
-    even number of rows on the rows' device."""
+    zero-padded to a multiple of 16,384 docs (and 16 columns) and packed
+    two docs per byte, (N_pad / 2, D_pad) int8 (``pack_corpus_i4``).
+    Quantises in chunks of an even number of rows on the rows' device."""
     n, dim = rows.shape
     n_pad = _round_up(max(n, _TURBO_UNIT), _TURBO_UNIT)
     chunk += chunk % 2  # whole doc pairs
-    out = torch.zeros((n_pad // 2, dim), dtype=torch.int8, device=rows.device)
+    out = torch.zeros((n_pad // 2, padded_dim(dim)), dtype=torch.int8, device=rows.device)
     for start in range(0, n, chunk):
         x4 = quantize_int4(rows[start : start + chunk])
         if x4.shape[0] % 2:  # the last doc pairs with a zero row
             x4 = torch.cat([x4, x4.new_zeros((1, dim))])
-        out[start // 2 : (start + x4.shape[0]) // 2] = _pack_pairs(x4)
+        out[start // 2 : (start + x4.shape[0]) // 2, :dim] = _pack_pairs(x4)
     return out
 
 

@@ -1,6 +1,7 @@
-// The Hopper corpus stream of kernels A (i8_top2g_tma.cu), D on bf16 rows
-// (turbo_bf16_tma.cu) and E1/E2 (turbo_i4_tma.cu): TMA loads into a ring of
-// shared-memory tiles, consumed by wgmma.
+// The Hopper corpus stream of kernels A (i8_top2g_tma.cu), B on bf16 rows
+// (fused_topk_v2.cu), D on bf16 rows (turbo_bf16_tma.cu) and E1/E2
+// (turbo_i4_tma.cu): TMA loads into a ring of shared-memory tiles, consumed
+// by wgmma.
 //
 // A block holds 128 queries (two consumer warpgroups of 64) and walks work
 // units of (super, lane half, part of the super's 128 sub-blocks). A doc
@@ -937,16 +938,19 @@ inline Geometry plan_grid(int row_bytes, int elem_bytes, int b_pad,
   return g;
 }
 
-// The geometry for b_pad queries of row_bytes over n_super supers.
+// The geometry for b_pad queries of row_bytes over n_super supers; a kernel
+// that keeps `reserve` bytes of its own after the stream's (smem_bytes(g)
+// - 1024 past the aligned base) leaves them out of the ring.
 inline Geometry plan(int row_bytes, int elem_bytes, int b_pad, int n_super,
-                     int max_parts, int max_qreg_boxes) {
+                     int max_parts, int max_qreg_boxes, int reserve = 0) {
   Geometry g = plan_grid(row_bytes, elem_bytes, b_pad, n_super, max_parts);
-  g.qstream = 1024 + g.n_box * kQBox + kMinResidentStages * kDBox + kBarBytes >
-              kSmemMax;
+  g.qstream = 1024 + g.n_box * kQBox + kMinResidentStages * kDBox + kBarBytes +
+                  reserve > kSmemMax;
   g.qregs = g.qstream || g.n_box > max_qreg_boxes ? 0 : g.n_box;
   g.kb = boxes_per_stage(g.qregs);
   const int stage = g.kb * kDBox + (g.qstream ? kQBox : 0);
-  const int room = kSmemMax - 1024 - kBarBytes - (g.qstream ? 0 : g.n_box * kQBox);
+  const int room = kSmemMax - 1024 - kBarBytes - reserve -
+                   (g.qstream ? 0 : g.n_box * kQBox);
   g.stages = room / stage < kMaxStages ? room / stage : kMaxStages;
   return g;
 }

@@ -100,7 +100,12 @@ def dense_arm_topk(
     plain: bool = False,  # run each kernel's plain twin (verification)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The dense-arm dispatch shared by ``DenseRetriever`` and the hybrid
-    step, so kernel and block_c handling cannot drift between them."""
+    step, so kernel and block_c handling cannot drift between them.
+
+    ``emb_op`` is the candidate corpus, its feature axis zero-padded to a
+    multiple of 16 at load (``convert``); the kernels' wrappers pad ``q``
+    and ``q8`` to its width per call. The rescore takes ``rescore_op`` (the
+    stored rows) and ``q`` at the true D."""
     if kernel == "int8":
         c = candidates if candidates is not None else min(max(2 * k, 32), n_docs)
         _, cids = dense_topk_fast_i8_grouped(
@@ -229,6 +234,8 @@ class DenseRetriever:
             self._emb_device = convert.int4_corpus(rows)
         elif kernel == "fast":
             self._emb_device = convert.fast_corpus(rows)
+        elif kernel == "pallas":
+            self._emb_device = convert.fused_corpus(rows)
         else:
             self._emb_device = rows
 

@@ -51,6 +51,18 @@ _SIGNATURES = {
     "oi_fused_topk": [
         _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P
     ],
+    # q, docs, is_bf16, shared_thr, part_vals, part_ids, tmp_vals, tmp_ids,
+    # out_vals, out_ids, b, n_docs, dim, k, qt, n_split, split_len, cap,
+    # sort_len, list_in_smem, stream
+    "oi_fused_topk_v2": [
+        _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ],
+    # q, docs, shared_thr, part_vals, part_ids, tmp_vals, tmp_ids, out_vals,
+    # out_ids, b, n_docs, dim, k, n_lists, stream
+    "oi_fused_topk_v2_tma": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+    ],
     # q, corpus, out, is_bf16, b_pad, dim, n_super, stream
     "oi_turbo_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     # q, packed corpus, out, slots, b_pad, dim, n_super, stream
@@ -187,9 +199,9 @@ def launch(name: str, *args) -> None:
         raise KernelLaunchError(f"{name}: CUDA error {rc} ({msg})")
 
 
-def ptr(t) -> ctypes.c_void_p:
-    """A tensor's device address as a C pointer."""
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t, offset: int = 0) -> ctypes.c_void_p:
+    """A tensor's device address, plus ``offset`` bytes, as a C pointer."""
+    return ctypes.c_void_p(t.data_ptr() + offset)
 
 
 def stream_of(t) -> ctypes.c_void_p:

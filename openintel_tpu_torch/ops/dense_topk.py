@@ -9,9 +9,12 @@ Counterparts of :mod:`openintel_tpu.ops.pallas.dense_topk`:
   group fold); the ``mma.sync`` kernel of ``csrc/i8_top2g.cu`` stays as
   the A/B control
   (:func:`i8_top2g_cells_v1`);
-- kernel B, ``csrc/fused_topk.cu`` (replaces ``_kernel`` of
+- kernel B, ``csrc/fused_topk_v2.cu`` (replaces ``_kernel`` of
   ``dense_topk_pallas``): the exact fused cosine top-k of
-  :func:`dense_topk_pallas`, the dense arm of smaller corpora;
+  :func:`dense_topk_pallas`, the dense arm of smaller corpora, on a
+  ``cp.async`` ring; bf16 rows at k <= 32 also run on the same stream on
+  request (``route="stream"``, measured slower); the first version,
+  ``csrc/fused_topk.cu``, stays as the A/B control (:func:`fused_topk_v1`);
 - kernel D (replaces ``_turbo_kernel_f32``): the f32/bf16 candidate cells
   of :func:`dense_topk_fast` (``kernel="fast"``), bf16 rows on the same
   stream (``csrc/turbo_bf16_tma.cu``), f32 rows by true-f32 FMA
@@ -62,6 +65,8 @@ reproduce (the values and the set of ids still agree).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -77,6 +82,19 @@ _SUPER = 128  # sub-blocks (of 128 docs) per super
 _TURBO_UNIT = _SUPER * 128  # docs per super (16,384)
 _I8_QUERY_TILE = 32  # queries per kernel-A/C/D/E/S block; batches pad to it
 _FUSED_MAX_K = 1024  # the reference kernel's k <= block_c bound
+FEATURE_MULTIPLE = 16  # the card kernels take D a multiple of this (pad_features)
+# Kernel B v2 (csrc/fused_topk_v2.cu): per-row candidate buffer, the query
+# tile and its doc tile by batch, blocks wanted per SM
+_FUSED_MIN_CAP = 32  # a warp's ballot appends up to 32 at once
+_FUSED_LIST_SMEM = 32 * 1024  # bytes of a block's lists kept in shared memory
+_FUSED_CAP = 64  # candidate buffer when the lists live in device memory (large k)
+_FUSED_TILE_DOCS = 128  # docs per tile
+_FUSED_BLOCKS_PER_SM = {16: 2, 64: 1}  # by query rows (8 and 16 warps a block)
+# bf16 rows at k <= this may take the TMA + wgmma stream (64 shared slots a
+# row: the list and a buffer of at least 32)
+_FUSED_STREAM_MAX_K = 32
+_STREAM_QUERY_ROWS = 128  # queries per block of the stream (csrc/tma_stream.cuh)
+_STREAM_MAX_PARTS = 16  # parts a super may be split into on the stream
 _SMEM_LIMIT = 232_448  # dynamic shared memory one H100 block may use
 _POS_BITS = 7  # kernel D: sub-block position within a super
 _POS_MASK = (1 << _POS_BITS) - 1  # 127
@@ -108,17 +126,43 @@ def quantize_int4(emb: torch.Tensor, scale: float = _I4_SCALE_DEFAULT) -> torch.
     return torch.clamp(torch.round(scale * emb.float()), -8, 7).to(torch.int8)
 
 
-def pad_corpus_rows(corpus: torch.Tensor) -> torch.Tensor:
+def pad_corpus_rows(corpus: torch.Tensor, width: int | None = None) -> torch.Tensor:
     """Zero-pad an (N, D) corpus (int8, f32 or bf16 rows) to a multiple of
-    16,384 rows (at least one super), the row-major ``pad_corpus_t``. Done
-    once at index load: the hot path must never copy the corpus."""
+    16,384 rows (at least one super), the row-major ``pad_corpus_t``, and
+    its feature axis to ``width`` columns (default D), in one copy; the
+    corpus itself when it fits already. Done once at index load: the hot
+    path must never copy the corpus."""
     n, dim = corpus.shape
     n_pad = _round_up(max(n, _TURBO_UNIT), _TURBO_UNIT)
-    if n_pad == n:
+    width = dim if width is None else width
+    if (n_pad, width) == (n, dim):
         return corpus
-    out = torch.zeros((n_pad, dim), dtype=corpus.dtype, device=corpus.device)
-    out[:n] = corpus
+    out = torch.zeros((n_pad, width), dtype=corpus.dtype, device=corpus.device)
+    out[:n, :dim] = corpus
     return out
+
+
+def padded_dim(dim: int) -> int:
+    """The feature width the card kernels take for ``dim`` columns: the next
+    multiple of ``FEATURE_MULTIPLE`` (16; 16 bytes a row at int8, 32 at
+    bf16, 64 at f32)."""
+    return _round_up(dim, FEATURE_MULTIPLE)
+
+
+def pad_features(x: torch.Tensor, width: int | None = None) -> torch.Tensor:
+    """Zero-pad the feature (last) axis of ``x`` to ``width`` columns, by
+    default :func:`padded_dim`.
+    Exact: a zero column adds 0 to every int32 dot and float32 sum. Returns
+    ``x`` itself when it already has that width; else a copy, so the
+    corpora are padded once when they are built and only queries per
+    call."""
+    dim = x.shape[-1]
+    width = padded_dim(dim) if width is None else width
+    if width == dim:
+        return x
+    if width < dim:
+        raise ValueError(f"cannot pad {dim} features down to {width}")
+    return torch.nn.functional.pad(x, (0, width - dim))
 
 
 def _pack_pairs(x4: torch.Tensor) -> torch.Tensor:
@@ -432,13 +476,17 @@ def dense_topk_fast_i8_grouped(
     int32), padded with (0.0, -1); k beyond the candidate capacity clamps
     and pads. ``block_c`` (a multiple of 128 dividing 16,384) sets the
     step width of the fold, which the tie rules make part of the
-    result."""
+    result. A feature width that is not a multiple of 16 is zero-padded
+    here (:func:`pad_features`), a copy of the corpus per call: the
+    retrievers pad theirs once at load."""
     if corpus.dtype != torch.int8 or queries.dtype != torch.int8:
         raise TypeError("dense_topk_fast_i8_grouped takes int8 operands")
     if group < 1:
         raise ValueError(f"group must be >= 1, got {group}")
     if block_c % 128 or _TURBO_UNIT % block_c:
         raise ValueError("block_c must be a multiple of 128 dividing 16384")
+    corpus = pad_features(corpus)  # a copy per call unless padded at load
+    queries = pad_features(queries, corpus.shape[1])
     n_stored = corpus.shape[0]
     n_docs = n_stored if n_docs is None else n_docs
     b = queries.shape[0]
@@ -619,15 +667,18 @@ def dense_topk_fast_i8(
     (the reference's ``dense_topk_fast_i8``). Returns (vals (B, k) f32,
     ids (B, k) int32), padded with (0.0, -1); k beyond the capacity of
     128 * slots per super clamps and pads. Pass :func:`pad_corpus_rows`
-    rows and the true ``n_docs``: unpadded rows pay a corpus copy per call.
-    ``block_c`` (a multiple of 128 dividing 16,384) is validated as the
-    reference does; the cells do not depend on it."""
+    rows and the true ``n_docs``: unpadded rows pay a corpus copy per call,
+    and so does a feature width that is not a multiple of 16
+    (:func:`pad_features`). ``block_c`` (a multiple of 128 dividing 16,384)
+    is validated as the reference does; the cells do not depend on it."""
     if corpus.dtype != torch.int8 or queries.dtype != torch.int8:
         raise TypeError("dense_topk_fast_i8 takes int8 operands")
     if slots not in (1, 2):
         raise ValueError(f"slots must be 1 or 2, got {slots}")
     if block_c % 128 or _TURBO_UNIT % block_c:
         raise ValueError("block_c must be a multiple of 128 dividing 16384")
+    corpus = pad_features(corpus)  # a copy per call unless padded at load
+    queries = pad_features(queries, corpus.shape[1])
     n_stored = corpus.shape[0]
     n_docs = n_stored if n_docs is None else n_docs
     b = queries.shape[0]
@@ -713,7 +764,11 @@ def dot_only(
     ``scripts/bench_kernel_decomp.py``): (B, 128) int32 per-lane sums of
     every dot, wrapping. Kernel A's corpus and mma volume with no fold, so
     its time is the least the int8 candidate stream takes. The batch pads
-    to the 32-query tile; the pad rows are dropped."""
+    to the 32-query tile; the pad rows are dropped. A feature width that
+    is not a multiple of 16 is zero-padded here (:func:`pad_features`), a
+    copy of the corpus per call."""
+    corpus = pad_features(corpus)  # a copy per call unless padded at load
+    queries = pad_features(queries, corpus.shape[1])
     if corpus.shape[0] % _TURBO_UNIT or corpus.shape[0] < _TURBO_UNIT:
         corpus = pad_corpus_rows(corpus)
     b = queries.shape[0]
@@ -838,12 +893,15 @@ def dense_topk_fast(
     ``dense_topk_fast``). Returns (vals (B, k) f32, quantised to 2**-16 /
     2**-15, ids (B, k) int32), padded with (0.0, -1); k beyond the capacity
     of 128 per super clamps and pads. Pass :func:`pad_corpus_rows` rows and
-    the true ``n_docs``: unpadded rows pay a corpus copy per call.
+    the true ``n_docs``: unpadded rows pay a corpus copy per call, and so
+    does a feature width that is not a multiple of 16 (:func:`pad_features`).
     ``block_c`` (a multiple of 128 dividing 16,384) is validated as the
     reference does; the cells do not depend on it."""
     # _TURBO_UNIT is the reference's _SUPER_COLS: docs per super
     if block_c % 128 or _TURBO_UNIT % block_c:
         raise ValueError("block_c must be a multiple of 128 dividing 16384")
+    corpus = pad_features(corpus)  # a copy per call unless padded at load
+    queries = pad_features(queries, corpus.shape[1])
     n_stored = corpus.shape[0]
     n_docs = n_stored if n_docs is None else n_docs
     b = queries.shape[0]
@@ -1062,11 +1120,16 @@ def dense_topk_fast_i4(
     128 * slots per super clamps and pads. Callers pass their candidate
     width as k and rescore exactly. ``block_c`` (a multiple of 128 dividing
     8,192) is validated as the reference does; the cells do not depend on
-    it."""
+    it. A feature width that is not a multiple of 16 is zero-padded here
+    (:func:`pad_features`), a copy of the corpus per call: the retrievers
+    pad theirs once at load."""
     if corpus.dtype != torch.int8 or queries.dtype != torch.int8:
         raise TypeError("dense_topk_fast_i4 takes int8 operands")
     if slots not in (1, 2):
         raise ValueError(f"slots must be 1 or 2, got {slots}")
+    # a copy per call unless padded at load; zero bytes hold zero nibbles
+    corpus = pad_features(corpus)
+    queries = pad_features(queries, corpus.shape[1])
     n_packed = corpus.shape[0]
     n_stored = 2 * n_packed
     n_docs = n_stored if n_docs is None else n_docs
@@ -1119,27 +1182,176 @@ def fused_topk_plain(
     return _pad_columns(vals, ids, k)
 
 
+def _check_fused_operands(name, doc_emb, queries, k) -> None:
+    if doc_emb.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} takes f32 or bf16 rows, got {doc_emb.dtype}")
+    if queries.dtype != doc_emb.dtype:
+        raise TypeError(f"{name} takes queries of the corpus dtype")
+    if queries.shape[1] != doc_emb.shape[1] or not 1 <= k <= _FUSED_MAX_K or doc_emb.shape[0] < 1:
+        raise ValueError(
+            f"{name}: queries {tuple(queries.shape)}, corpus "
+            f"{tuple(doc_emb.shape)}, k={k} (1 <= k <= {_FUSED_MAX_K})"
+        )
+
+
+def _mask_unfilled(out_vals, out_ids):
+    unfilled = out_ids < 0
+    return (
+        torch.where(unfilled, torch.zeros_like(out_vals), out_vals),
+        torch.where(unfilled, torch.full_like(out_ids, -1), out_ids),
+    )
+
+
+def fused_plan(b: int, n_docs: int, k: int, sms: int = 132) -> dict:
+    """Kernel B v2's launch geometry (``csrc/fused_topk_v2.cu``): the query
+    tile (64 rows, or 16 at a batch of 16 or fewer and at k > 32, whose
+    lists do not fit 64 rows' shared memory; doc tiles of 128), the corpus
+    splits (enough for ``_FUSED_BLOCKS_PER_SM`` blocks on each of ``sms``
+    SMs, at most one per doc tile; ``split_len`` whole doc tiles),
+    where each row's list lives, the candidate buffer ``cap`` and the sort
+    width ``sort_len`` (a power of two). While a block's rows of
+    ``sort_len`` slots fit in ``_FUSED_LIST_SMEM`` bytes (k <= 224 at 16
+    rows, k <= 32 at 64), list and buffer share them in shared memory
+    (``cap = sort_len - k``, sort_len the power of two >= k + 32); else the
+    lists live in device memory, with a 64-slot buffer. Each split's lists
+    are merged 32 at a time, in passes, so the split count has no cap."""
+    qt = 64 if b > 16 and k <= _FUSED_MIN_CAP else 16
+    nt = _FUSED_TILE_DOCS
+    n_qt = -(-b // qt)
+    n_tiles = -(-n_docs // nt)
+    want = max(1, -(-(_FUSED_BLOCKS_PER_SM[qt] * sms) // n_qt))
+    per_split = -(-n_tiles // min(want, n_tiles))
+    split_len = per_split * nt
+    n_split = -(-n_docs // split_len)
+    sort_len = 1 << (k + _FUSED_MIN_CAP - 1).bit_length()
+    list_in_smem = qt * sort_len * 8 <= _FUSED_LIST_SMEM
+    if not list_in_smem:
+        sort_len = 1 << (k + _FUSED_CAP - 1).bit_length()
+    return {
+        "qt": qt, "nt": nt, "n_split": n_split, "split_len": split_len,
+        "cap": sort_len - k if list_in_smem else _FUSED_CAP,
+        "sort_len": sort_len, "list_in_smem": int(list_in_smem),
+    }
+
+
+def fused_stream_plan(b: int, n_docs: int, sms: int = 132) -> dict:
+    """Kernel B's stream route (bf16 rows, k <= 32) as ``plan_grid`` of
+    ``csrc/tma_stream.cuh`` lays out its grid: ``n_super`` 16,384-doc
+    supers, each split into ``parts`` (the fewest, a power of two up to 16,
+    that spread the units of (super, lane half, part) over the SMs at >=
+    90 %, else the most even split), walked by ``ctas_per_qt`` blocks per
+    128-query tile: block c takes units c, c + ctas_per_qt, ... Each block
+    leaves one list per query, so a query gets ``ctas_per_qt`` lists (the
+    kernel refuses a count that differs from its own plan)."""
+    n_super = -(-n_docs // _TURBO_UNIT)
+    per_qt = max(sms // -(-b // _STREAM_QUERY_ROWS), 1)
+    best, plan = -1.0, {}
+    parts = 1
+    while parts <= _STREAM_MAX_PARTS:
+        units = n_super * 2 * parts
+        c = min(units, per_qt)
+        eff = units / (-(-units // c) * per_qt)
+        if eff > best + 1e-9:
+            best, plan = eff, {"n_super": n_super, "parts": parts, "ctas_per_qt": c}
+        if eff >= 0.9:
+            break
+        parts *= 2
+    return plan
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def fused_topk(
-    doc_emb: torch.Tensor, queries: torch.Tensor, k: int
+    doc_emb: torch.Tensor, queries: torch.Tensor, k: int, *, route: str = "ring"
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Kernel B (``csrc/fused_topk.cu``) on CUDA tensors; its plain twin on
-    CPU tensors. Same contract as :func:`fused_topk_plain`."""
+    """Kernel B (``csrc/fused_topk_v2.cu``) on CUDA tensors; its plain twin
+    on CPU tensors. Same contract as :func:`fused_topk_plain`, for any D
+    and any k <= 1,024. A D that is not a multiple of 16 is zero-padded
+    here, which copies the corpus on every call: the retrievers pad their
+    rows once at load (:func:`pad_features`).
+
+    ``route``: ``"ring"`` (served) runs the ``cp.async`` ring kernel;
+    ``"stream"`` runs bf16 rows at k <= 32 on the TMA + wgmma stream
+    instead, which measured slower on an H100 (its selection holds the
+    wgmma warps; ``PERF.md`` §6) and is kept as the ring's A/B
+    measurement."""
     if doc_emb.device.type == "cpu" and queries.device.type == "cpu":
         return fused_topk_plain(doc_emb, queries, k)
     _require_cuda(doc_emb, queries)
-    if doc_emb.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"kernel B takes f32 or bf16 rows, got {doc_emb.dtype}")
-    if queries.dtype != doc_emb.dtype:
-        raise TypeError("kernel B takes queries of the corpus dtype")
+    _check_fused_operands("kernel B", doc_emb, queries, k)
+    stream = route == "stream"
+    if route not in ("ring", "stream") or (
+        stream and (doc_emb.dtype != torch.bfloat16 or k > _FUSED_STREAM_MAX_K)
+    ):
+        raise ValueError(
+            f"route={route!r}: 'ring', or 'stream' for bf16 rows at k <= "
+            f"{_FUSED_STREAM_MAX_K} (got {doc_emb.dtype}, k={k})"
+        )
+    doc_emb = pad_features(doc_emb).contiguous()
+    queries = pad_features(queries, doc_emb.shape[1]).contiguous()
     n_docs, dim = doc_emb.shape
     b = queries.shape[0]
-    if queries.shape[1] != dim or not 1 <= k <= _FUSED_MAX_K or n_docs < 1:
-        raise ValueError(
-            f"kernel B: queries {tuple(queries.shape)}, corpus "
-            f"{tuple(doc_emb.shape)}, k={k} (1 <= k <= {_FUSED_MAX_K})"
-        )
+    dev = queries.device
+    out = torch.empty((2, b, k), dtype=torch.int32, device=dev)  # vals' bits, ids
+    if b == 0:
+        return out[0].view(torch.float32), out[1]
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    if stream:
+        n_split = fused_stream_plan(b, n_docs, _sm_count(index))["ctas_per_qt"]
+    else:
+        plan = fused_plan(b, n_docs, k, _sm_count(index))
+        n_split = plan["n_split"]
+    n_lists = n_split + (-(-n_split // 32) if n_split > 32 else 0)
+    # (vals' bits, ids) of each split's lists, then of the merge passes'
+    # lists; then the threshold the splits share per query
+    scratch = torch.empty((2 * n_lists * k + 1) * b, dtype=torch.int32, device=dev)
+    size = 4 * b * k  # bytes of one list set
+    lists = (
+        _kernels.ptr(scratch, 2 * n_lists * size),
+        _kernels.ptr(scratch), _kernels.ptr(scratch, n_lists * size),
+        _kernels.ptr(scratch, n_split * size),
+        _kernels.ptr(scratch, (n_lists + n_split) * size),
+        _kernels.ptr(out), _kernels.ptr(out, size),
+    )
+    with torch.cuda.device(dev):
+        if stream:
+            _kernels.launch(
+                "oi_fused_topk_v2_tma", _kernels.ptr(queries), _kernels.ptr(doc_emb),
+                *lists, b, n_docs, dim, k, n_split, _kernels.stream_of(queries),
+            )
+        else:
+            _kernels.launch(
+                "oi_fused_topk_v2", _kernels.ptr(queries), _kernels.ptr(doc_emb),
+                int(doc_emb.dtype == torch.bfloat16), *lists,
+                b, n_docs, dim, k, plan["qt"], n_split, plan["split_len"],
+                plan["cap"], plan["sort_len"], plan["list_in_smem"],
+                _kernels.stream_of(queries),
+            )
+    fused_topk.launches += 1
+    return out[0].view(torch.float32), out[1]
+
+
+fused_topk.launches = 0
+
+
+def fused_topk_v1(
+    doc_emb: torch.Tensor, queries: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B's first version (``csrc/fused_topk.cu``: 8 queries and a
+    32-doc chunk of whole rows per block in shared memory, at most 32
+    splits), the control of A/B runs; its plain twin on CPU tensors. Same
+    contract as :func:`fused_topk_plain`, within its shared memory."""
+    if doc_emb.device.type == "cpu" and queries.device.type == "cpu":
+        return fused_topk_plain(doc_emb, queries, k)
+    _require_cuda(doc_emb, queries)
+    _check_fused_operands("kernel B v1", doc_emb, queries, k)
+    n_docs, dim = doc_emb.shape
+    b = queries.shape[0]
     if 4 * (8 * dim + 32 * (dim + 1) + 16 * k) > _SMEM_LIMIT:
-        raise ValueError(f"D={dim}, k={k} exceed kernel B's shared memory")
+        raise ValueError(f"D={dim}, k={k} exceed kernel B v1's shared memory")
     dev = queries.device
     out_vals = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_ids = torch.empty((b, k), dtype=torch.int32, device=dev)
@@ -1163,15 +1375,11 @@ def fused_topk(
             b, n_docs, dim, k, n_split, split_len,
             _kernels.stream_of(queries),
         )
-    fused_topk.launches += 1
-    unfilled = out_ids < 0
-    return (
-        torch.where(unfilled, torch.zeros_like(out_vals), out_vals),
-        torch.where(unfilled, torch.full_like(out_ids, -1), out_ids),
-    )
+    fused_topk_v1.launches += 1
+    return _mask_unfilled(out_vals, out_ids)
 
 
-fused_topk.launches = 0
+fused_topk_v1.launches = 0
 
 
 def dense_topk_pallas(
@@ -1182,9 +1390,12 @@ def dense_topk_pallas(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused cosine top-k (the reference's ``dense_topk_pallas``). Returns
     (vals (B, k) f32, ids (B, k) int32); k > n_docs leaves (0.0, -1)
-    slots."""
+    slots. Queries narrower than the rows (rows padded by
+    :func:`pad_features`) are zero-padded to match; a D that is not a
+    multiple of 16 costs a per-call copy of the corpus on the card."""
     if k > _FUSED_MAX_K:
         raise ValueError(f"k={k} exceeds the fused kernel's {_FUSED_MAX_K}")
+    queries = pad_features(queries, doc_emb.shape[1])
     return (fused_topk_plain if plain else fused_topk)(doc_emb, queries, k)
 
 
@@ -1227,6 +1438,7 @@ def reset_launch_counts() -> None:
     i8_top2g_cells_v1.launches = 0
     i8_fold_steps.launches = 0
     fused_topk.launches = 0
+    fused_topk_v1.launches = 0
     fast_cells.launches = 0
     fast_cells_v1.launches = 0
     i4_cells.launches = {1: 0, 2: 0}
@@ -1243,6 +1455,7 @@ def launch_counts() -> dict[str, int]:
         "i8_top2g_v1": i8_top2g_cells_v1.launches,
         "i8_fold": i8_fold_steps.launches,
         "fused_topk": fused_topk.launches,
+        "fused_topk_v1": fused_topk_v1.launches,
         "turbo_f32": fast_cells.launches,
         "turbo_f32_v1": fast_cells_v1.launches,
         "turbo_i4": i4_cells.launches[1],

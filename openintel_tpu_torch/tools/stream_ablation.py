@@ -1,4 +1,5 @@
-"""Where the time of kernels A, D, E2 and E1 goes on the TMA + wgmma stream.
+"""Where the time of kernels A, D, E2 and E1 goes on the TMA + wgmma stream,
+and of kernel B (v2) on its cp.async ring.
 
 Each kernel of ``csrc/tma_stream.cuh`` (A, ``csrc/i8_top2g_tma.cu``; D on
 bf16 rows, ``csrc/turbo_bf16_tma.cu``; E2 and E1, ``csrc/turbo_i4_tma.cu``)
@@ -15,6 +16,19 @@ is built several ways and timed at the main path's shapes:
 - ring, E only: the unpack, the products and the fold compiled out
   (``-DOI_STREAM_ABLATE=4``): E's TMA loads and its two rings' barriers.
 
+Kernel B (``csrc/fused_topk_v2.cu``) takes the same flags: no-fold drops
+its selection, stream its products too. On its ``cp.async`` ring (``B
+f32``, ``B bf16``) that leaves the staging ring of query and doc slices;
+on its TMA + wgmma stream route (``B bf16 stream``, ``route="stream"``)
+the stream alone, with four more variants: tests-only
+(``-DOI_B_SELECT=1``) keeps the selection's tests and counts but appends
+and compacts nothing, no-shared (``-DOI_B_SELECT=2``) drops the threshold
+the blocks share, quad-compact (``-DOI_B_COMPACT=1``) compacts all eight
+rows of a warp at once, a quad of lanes each, and unrolled-sort
+(``-DOI_B_COMPACT=2``) unrolls the one-row-at-a-time sort. It is timed on
+the first 98,304 docs (the largest corpus that selects it), k = 32,
+B=256 only, and its merge kernel runs in every variant.
+
 Kernel A's time includes its second stage (the group fold), which the
 variants keep. E2 is also timed with one part per super (as built it
 splits supers into up to two, met by a merge kernel). The variants of a
@@ -26,6 +40,7 @@ clusters). The operands are random, made on the card from a seed; the
 variants' outputs are not results.
 
     python -m openintel_tpu_torch.tools.stream_ablation [N_DOCS] [--reps R]
+        [--kernels 'B bf16,B bf16 stream'] [--batches 256]
 
 Runs on the card only (the variants are CUDA builds).
 """
@@ -48,8 +63,16 @@ VARIANTS = {
     "stream": ("-DOI_STREAM_ABLATE=2",),
     "no-unpack": ("-DOI_STREAM_ABLATE=3",),
     "ring": ("-DOI_STREAM_ABLATE=4",),
+    "tests-only": ("-DOI_B_SELECT=1",),
+    "no-shared": ("-DOI_B_SELECT=2",),
+    "quad-compact": ("-DOI_B_COMPACT=1",),
+    "unrolled-sort": ("-DOI_B_COMPACT=2",),
 }
-STREAM = ("full", "no-fold", "stream")  # the variants of A and D
+STREAM = ("full", "no-fold", "stream")  # the variants of A, B and D
+# kernel B's stream route (bf16 rows): also its selection's tests alone,
+# without the threshold the blocks share, and the other two compactions
+B_STREAM = (*STREAM, "tests-only", "no-shared", "quad-compact", "unrolled-sort")
+B_DOCS = 98_304  # kernel B's corpus: the largest that selects it
 CALLS = 10  # launches per sample
 
 
@@ -65,16 +88,16 @@ def operands(n_docs: int, batch: int, device: torch.device):
     e8 = T.pad_corpus_rows(T.quantize_int8(rows))
     eb = T.pad_corpus_rows(rows.bfloat16())
     e4 = T.pack_corpus_i4(T.quantize_int4(rows))
-    return e8, T.quantize_int8(q), eb, q.bfloat16(), e4
+    return e8, T.quantize_int8(q), eb, q.bfloat16(), e4, rows[:B_DOCS], q
 
 
-def ablate(n_docs: int, batches=(128, 256), *, reps: int) -> list[dict]:
+def ablate(n_docs: int, batches=(128, 256), *, reps: int, only=None) -> list[dict]:
     """Rows (kernel, batch, variant, ms median, ms best) per call, the
-    variants timed in turns: ``reps`` rounds of CALLS launches each."""
+    variants timed in turns: ``reps`` rounds of CALLS launches each.
+    ``only``: the names of the kernels to time (default all)."""
     device = torch.device("cuda")
-    for flags in VARIANTS.values():
-        _kernels.load_library(flags)  # build every variant before timing
-    e8, q8_all, eb, qb_all, e4 = operands(n_docs, max(batches), device)
+    e8, q8_all, eb, qb_all, e4, b_rows, qf_all = operands(n_docs, max(batches), device)
+    b_bf16 = b_rows.bfloat16()
     group = T.auto_i8_group(n_docs, common.C)
     sub = common.BLOCK_C // 128
     rows = []
@@ -87,6 +110,18 @@ def ablate(n_docs: int, batches=(128, 256), *, reps: int) -> list[dict]:
             "E1": (lambda: T.i4_cells(q8, e4, slots=1), tuple(VARIANTS)),
             "E2 1 part": (lambda: T.i4_cells(q8, e4, slots=2, max_parts=1), ("full",)),
         }
+        if batch == 256:
+            qf = qf_all[:batch].contiguous()
+            kernels["B f32"] = (lambda: T.fused_topk(b_rows, qf, common.C), STREAM)
+            kernels["B bf16"] = (lambda: T.fused_topk(b_bf16, qb, common.C), STREAM)
+            kernels["B bf16 stream"] = (
+                lambda: T.fused_topk(b_bf16, qb, common.C, route="stream"), B_STREAM
+            )
+        if only is not None:
+            kernels = {name: kernels[name] for name in only if name in kernels}
+        for _, names in kernels.values():
+            for name in names:
+                _kernels.load_library(VARIANTS[name])  # build before timing
         for kernel, (fn, names) in kernels.items():
             samples = {name: [] for name in names}
             for _ in range(reps + 1):  # the first round warms up
@@ -119,17 +154,26 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("n_docs", nargs="?", type=int, default=1_250_000)
     parser.add_argument("--reps", type=int, default=5)
+    parser.add_argument(
+        "--kernels", default=None,
+        help="comma-separated kernels to time (A, D, E2, E1, 'E2 1 part', 'B f32', "
+        "'B bf16', 'B bf16 stream'; default all)",
+    )
+    parser.add_argument("--batches", default="128,256", help="comma-separated batch sizes")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("stream_ablation: needs a CUDA card", file=sys.stderr)
         return 2
     device = torch.device("cuda")
     print(common.device_line(device))
-    for row in ablate(args.n_docs, reps=args.reps):
+    only = args.kernels.split(",") if args.kernels else None
+    batches = tuple(int(x) for x in args.batches.split(","))
+    for row in ablate(args.n_docs, batches, reps=args.reps, only=only):
+        n = min(args.n_docs, B_DOCS) if row["kernel"].startswith("B ") else args.n_docs
         print(
             f"kernel {row['kernel']} B={row['batch']} {row['variant']:<8} "
             f"{row['ms_median']:.4f} ms median {row['ms_best']:.4f} best per call "
-            f"(N={args.n_docs}, D={common.DIM}; {args.reps} rounds of {CALLS} calls)"
+            f"(N={n}, D={common.DIM}; {args.reps} rounds of {CALLS} calls)"
         )
     return 0
 

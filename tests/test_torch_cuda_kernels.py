@@ -10,11 +10,20 @@ Tolerances: the cells of kernels A, C1, C2, E1 and E2 and the lane sums of
 kernel S are bit-identical to the twins' (integer arithmetic); kernel D's
 are too on dyadic operands (every
 partial sum exact), and elsewhere a cell's score moves by at most one step
-of 2**-15 (the sum order); kernel B's scores agree to 2e-6 and its ids are
-equal except where two docs' scores differ by less than 1e-5. The
-redesigned kernels A, D, E1 and E2 (TMA + wgmma) are also held to their A/B
-controls (their ``mma.sync`` versions) under the same rules.
+of 2**-15 (the sum order); kernel B's scores (v2, ``csrc/fused_topk_v2.cu``:
+its ``cp.async`` ring and, for bf16 rows at k <= 32, its TMA + wgmma
+stream route; and its v1 control) agree to 2e-6 and its ids are equal
+except where two docs' scores differ by less than 1e-5 (the twin sums in
+another order; bf16 products are exact in float32, summed by the tensor
+cores), and duplicate rows come out lower id first, exactly. The
+redesigned kernels A, B (bf16: the stream route against the ring), D, E1 and E2
+(TMA + wgmma) are also held to their A/B controls (their ``mma.sync``
+versions) under the same rules. The hybrid paths at D = 100
+and 200 (feature axis zero-padded to 112 and 208) equal their plain-twin
+paths on dyadic rows, for every arm.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -67,19 +76,105 @@ def test_kernel_a_cells_match_twin(cuda, group, block_c, dim):
         assert torch.equal(g, w)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k", [1, 10, 100])
-def test_kernel_b_matches_twin(cuda, dtype, k):
-    emb = synthetic_embeddings(9_000, dim=96, seed=3)
-    q, _ = synthetic_query_embeddings(emb, 21, seed=4)
-    d = torch.from_numpy(emb).to(cuda, dtype)
-    qq = torch.from_numpy(q).to(cuda, dtype)
-    kv, ki = T.fused_topk(d, qq, k)
-    pv, pi = T.fused_topk_plain(d, qq, k)
-    kv, ki, pv, pi = (t.cpu().numpy() for t in (kv, ki, pv, pi))
+def _assert_b_rule(got, want):
+    """Kernel B's rule: scores within 2e-6 where the ids agree; ids differ
+    only where the two docs' scores differ by less than 1e-5."""
+    kv, ki, pv, pi = (t.cpu().numpy() for t in (*got, *want))
+    assert ki.shape == pi.shape
     same = ki == pi
     np.testing.assert_allclose(kv[same], pv[same], rtol=0, atol=2e-6)
     assert (np.abs(kv - pv)[~same] < 1e-5).all()
+    for row in ki:
+        real = row[row >= 0]
+        assert len(set(real.tolist())) == real.size
+
+
+@functools.lru_cache(maxsize=2)
+def _unit_rows(n, dim, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((n, dim), generator=g, device="cuda")
+    return x / x.norm(dim=1, keepdim=True)
+
+
+@pytest.mark.parametrize("dim", [96, 100, 384, 1536, 2048])  # 100: padded to 112
+@pytest.mark.parametrize("k", [1, 10, 32, 100, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_b_matches_twin(cuda, dtype, k, dim):
+    """Kernel B v2 at B 1, 15 (16-row query tiles), 256 and 300 (64-row),
+    over N 20 (k > N: (0.0, -1) slots), 9,000 and 98,304."""
+    docs = _unit_rows(98_304, dim, 3).to(dtype)
+    queries = _unit_rows(300, dim, 4).to(dtype)
+    for n in (20, 9_000, 98_304):
+        for b in (1, 15, 256, 300):
+            d, q = docs[:n], queries[:b]
+            before = T.launch_counts()["fused_topk"]
+            got = T.fused_topk(d, q, k)
+            torch.cuda.synchronize()
+            assert T.launch_counts()["fused_topk"] == before + 1
+            _assert_b_rule(got, T.fused_topk_plain(d, q, k))
+            if k > n:
+                assert (got[1][:, n:] == -1).all() and (got[0][:, n:] == 0).all()
+
+
+@pytest.mark.parametrize("b", [1, 15, 256, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_b_duplicate_rows_lower_id_first(cuda, dtype, b):
+    """Doc i equals doc i + 4,500: each pair comes out together with equal
+    scores, lower id first, at every rank (the twin's product need not give
+    both rows of a pair the same rounding, so it is held to the rule)."""
+    base = _unit_rows(4_500, 384, 5).to(dtype)
+    docs = torch.cat([base, base])
+    q = base[torch.arange(b, device=cuda) * 7 % 4_500]
+    routes = ("ring", "stream") if dtype == torch.bfloat16 else ("ring",)
+    for route in routes:  # bf16: the TMA + wgmma stream as well
+        kv, ki = T.fused_topk(docs, q, 10, route=route)
+        _assert_b_rule((kv, ki), T.fused_topk_plain(docs, q, 10))
+        assert torch.equal(ki[:, 1::2] - ki[:, 0::2], torch.full_like(ki[:, 0::2], 4_500))
+        assert torch.equal(kv[:, 1::2], kv[:, 0::2])
+        assert (ki[:, 0] == torch.arange(b, device=cuda) * 7 % 4_500).all()
+
+
+@pytest.mark.parametrize("dim", [100, 384, 1536])  # 1536: queries streamed
+@pytest.mark.parametrize("b", [1, 15, 256, 300])  # 256: 2-block clusters; 300: 3 tiles
+def test_kernel_b_bf16_stream_against_ring(cuda, b, dim):
+    """bf16 rows at k <= 32 also run on the TMA + wgmma stream
+    (``route="stream"``), held to the served ring: both under the rule
+    against the twin and against each other, at k 1, 10 and 32 over N 20
+    (k > N: (0.0, -1) slots), 9,000 and 98,304."""
+    docs = _unit_rows(98_304, dim, 8).bfloat16()
+    q = _unit_rows(300, dim, 9).bfloat16()[:b]
+    for n in (20, 9_000, 98_304):
+        for k in (1, 10, 32):
+            d = docs[:n]
+            T.reset_launch_counts()
+            got, ring = T.fused_topk(d, q, k, route="stream"), T.fused_topk(d, q, k)
+            torch.cuda.synchronize()
+            assert T.launch_counts()["fused_topk"] == 2
+            want = T.fused_topk_plain(d, q, k)
+            _assert_b_rule(got, want)
+            _assert_b_rule(ring, want)
+            _assert_b_rule(got, ring)
+            if k > n:
+                assert (got[1][:, n:] == -1).all() and (got[0][:, n:] == 0).all()
+
+
+@pytest.mark.parametrize("k", [10, 32])
+@pytest.mark.parametrize("b", [1, 15, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_b_new_against_v1(cuda, dtype, b, k):
+    """At a width v1 takes (D=384, N=20,000): v2 and its v1 control both
+    under the rule against the twin, and against each other; each launch
+    counted apart."""
+    docs = _unit_rows(20_000, 384, 6).to(dtype)
+    q = _unit_rows(256, 384, 7).to(dtype)[:b]
+    T.reset_launch_counts()
+    got, v1 = T.fused_topk(docs, q, k), T.fused_topk_v1(docs, q, k)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in T.launch_counts().items() if c} == {"fused_topk": 1, "fused_topk_v1": 1}
+    want = T.fused_topk_plain(docs, q, k)
+    _assert_b_rule(got, want)
+    _assert_b_rule(v1, want)
+    _assert_b_rule(got, v1)
 
 
 def test_hybrid_int8_path_matches_twins(cuda):
@@ -357,3 +452,20 @@ def test_kernel_e_new_against_v1(cuda, data, b, dim):
     kv, ki = T.dense_topk_fast_i4(packed, q8.to(cuda), k=300, n_docs=n, slots=2)
     pv, pi = T.dense_topk_fast_i4(packed, q8.to(cuda), k=300, n_docs=n, slots=2, plain=True)
     assert ki.shape == (b, 300) and torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("dim", [100, 200])
+@pytest.mark.parametrize(
+    "kernel,counter",
+    [("int8", "i8_top2g"), ("fast", "turbo_f32"), ("int4", "turbo_i4_top2"), ("pallas", "fused_topk")],
+)
+def test_hybrid_paths_at_a_misfit_width(cuda, kernel, counter, dim):
+    """Every arm serves D = 100 and 200 on the card (the corpora padded at
+    load to 112 and 208 columns, the queries per call), equal to its
+    plain-twin path; dyadic rows make every sum exact."""
+    rng = np.random.default_rng(34)
+    retr = _hybrid_pair(cuda, kernel, dyadic_rows(rng, 40_000, dim))
+    assert retr.dense._emb_device.shape[1] == T.padded_dim(dim)
+    got, want = _run_both(retr, dyadic_rows(rng, 70, dim), counter)
+    np.testing.assert_array_equal(got.ids, want.ids)
+    np.testing.assert_array_equal(got.scores, want.scores)

@@ -265,7 +265,7 @@ def test_exact_rescore_matches_jax(dtype):
 
 
 NO_LAUNCHES = {
-    "i8_top2g": 0, "i8_top2g_v1": 0, "i8_fold": 0, "fused_topk": 0,
+    "i8_top2g": 0, "i8_top2g_v1": 0, "i8_fold": 0, "fused_topk": 0, "fused_topk_v1": 0,
     "turbo_f32": 0, "turbo_f32_v1": 0, "turbo_i4": 0, "turbo_i4_top2": 0,
     "turbo_i4_v1": 0, "turbo_i4_top2_v1": 0, "turbo_i8": 0, "turbo_i8_top2": 0,
     "dot_only": 0,
@@ -282,6 +282,7 @@ def test_wrappers_route_cpu_to_twins_without_counting():
     steps = T.i8_step_tops_plain(q, corpus, sub=64)
     assert all(c.shape == (32, 128) for c in T.i8_fold_steps(steps, n_super=1, group=1, sub=64))
     T.fused_topk(torch.eye(4), torch.eye(4), 2)
+    T.fused_topk_v1(torch.eye(4), torch.eye(4), 2)
     assert T.fast_cells(q.float(), corpus.float()).shape == (32, 128)
     assert T.fast_cells_v1(q.bfloat16(), corpus.bfloat16()).shape == (32, 128)
     packed = corpus[: T._TURBO_UNIT // 2]
@@ -302,6 +303,8 @@ def test_wrappers_refuse_non_cuda_devices():
         T.i8_top2g_cells(q, corpus, group=1, sub=64)
     with pytest.raises(ValueError, match="CUDA"):
         T.fused_topk(torch.empty((4, 4), device="meta"), torch.empty((2, 4)), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        T.fused_topk_v1(torch.empty((4, 4), device="meta"), torch.empty((2, 4)), 2)
     with pytest.raises(ValueError, match="CUDA"):
         T.fast_cells(q.float(), corpus.float())
     with pytest.raises(ValueError, match="CUDA"):

@@ -148,12 +148,13 @@ def test_library_name_follows_the_sources():
     assert so.parent == _kernels.BUILD_DIR
     assert so.name.startswith("libopenintel_tpu_torch_") and so.suffix == ".so"
     assert {p.name for p in _kernels.sources()} == {
-        "dot_only.cu", "fused_topk.cu", "i8_top2g.cu", "i8_top2g_tma.cu",
-        "turbo_bf16_tma.cu", "turbo_f32.cu", "turbo_i4.cu", "turbo_i4_tma.cu",
-        "turbo_i8.cu",
+        "dot_only.cu", "fused_topk.cu", "fused_topk_v2.cu", "i8_top2g.cu",
+        "i8_top2g_tma.cu", "turbo_bf16_tma.cu", "turbo_f32.cu", "turbo_i4.cu",
+        "turbo_i4_tma.cu", "turbo_i8.cu",
     }
     assert set(_kernels._SIGNATURES) == {
-        "oi_dot_only", "oi_fused_topk", "oi_i8_top2g", "oi_i8_top2g_tma",
+        "oi_dot_only", "oi_fused_topk", "oi_fused_topk_v2", "oi_fused_topk_v2_tma",
+        "oi_i8_top2g", "oi_i8_top2g_tma",
         "oi_i8_fold", "oi_turbo_bf16_tma", "oi_turbo_f32", "oi_turbo_i4",
         "oi_turbo_i4_tma", "oi_turbo_i8",
     }

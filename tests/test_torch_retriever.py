@@ -204,7 +204,8 @@ def test_auto_select_mirrors_the_reference():
     assert tr.DenseRetriever(small, device="meta").kernel == "pallas"
     meta_big = tr.DenseRetriever(big, device="meta")
     assert meta_big.kernel == "int8"
-    assert meta_big._emb_device.shape == (7 * 16_384, 8)  # padded once, at load
+    # padded once, at load: rows to whole supers, features to 16 columns
+    assert meta_big._emb_device.shape == (7 * 16_384, 16)
     assert meta_big._emb_device.dtype == torch.int8
     assert tr.DenseRetriever(small, use_pallas=True, device="cpu").kernel == "pallas"
     assert tr.DenseRetriever(small, use_pallas=False, device="meta").kernel == "xla"

@@ -144,7 +144,7 @@ def test_measurement_builds_are_libraries_of_their_own():
     from openintel_tpu_torch.tools import stream_ablation
 
     names = {_kernels.library_path(f) for f in stream_ablation.VARIANTS.values()}
-    assert len(names) == len(stream_ablation.VARIANTS) == 5
+    assert len(names) == len(stream_ablation.VARIANTS) == 9
     assert _kernels.library_path() in names
     flags = stream_ablation.VARIANTS["stream"]
     with _kernels.extra_flags(flags):
