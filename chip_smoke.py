@@ -64,25 +64,31 @@ there), then 4, 5, 12, 13, 8, 9, 11 (the paths):
    time; the public op ``dense_topk_fast_i4(slots=1)`` (kernel E1) on one
    sub-batch; E2 and E1 alone against their twin and against v1 (5
    alternating rounds), with E2's stream and merge kernels by the profiler;
-10. kernels C1/C2 (``csrc/turbo_i8.cu``) and S (``csrc/dot_only.cu``)
-   against their plain twins: cells, ``dense_topk_fast_i8`` (slots 1 and 2,
-   k=32 and beyond capacity) and the wrapping lane sums bit-identical, on
-   random, tie-heavy and saturated operands;
+10. kernels C1/C2 (``csrc/turbo_i8_tma.cu``, TMA + wgmma) and their A/B
+   control, the ``mma.sync`` kernel of ``csrc/turbo_i8.cu``, and S
+   (``csrc/dot_only.cu``) against their plain twins: cells,
+   ``dense_topk_fast_i8`` (slots 1 and 2, k=32 and beyond capacity) and the
+   wrapping lane sums bit-identical, on random, tie-heavy and saturated
+   operands; the new kernels also at B=256 (C1 in 2-block clusters), C2
+   with 1 and 16 parts per super;
 11. the candidate-pass measurement path at full width, on phase 4's corpus
    and queries: the cores of the three tools in
    ``openintel_tpu_torch/tools`` (kernel S, C1, C2 and A per sub-batch),
    ``dense_topk_fast_i8`` against its plain path, recall@10 after rescore
-   of the per-super pass against the grouped kernel A's, and C2, C1 and S
-   alone against their twins.
+   of the per-super pass against the grouped kernel A's, C2 and C1 alone
+   against their twin and against v1 (5 alternating rounds), and S alone
+   against its twin.
 
 Each path runs in its own counted window: the kernel launch counts are
 zeroed just before it and read just after, and each kernel of the path
 must have launched. The line before the last is a JSON object with each
 kernel's launches (from its window), error and time beside its twin's and
 its bound (the larger of its bytes over the memory rate and its operations
-over the peak rate of their type), and for the redesigned kernels A, B, D,
-E1 and E2 the v1 control's median from the same run (``prev_ms``); kernel
-B's v1 control has a record of its own (``fused_topk_v1``); the last line
+over the peak rate of their type), and for the redesigned kernels A, B,
+C1, C2, D, E1 and E2 the v1 control's median from the same run
+(``prev_ms``); the v1 controls of kernels B, C1 and C2 have records of
+their own (``fused_topk_v1``, ``turbo_i8_v1``, ``turbo_i8_top2_v1``,
+launched only beside the paths, so 0 launches in the windows); the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits non-zero and
 prints no result.
 
@@ -580,12 +586,14 @@ def phase_kernel_c_s() -> None:
         crp, q = T.pad_corpus_rows(crp.to(dev)), q.to(dev)
         q_pad = torch.cat([q, q.new_zeros((64 - b, DIM))])
         for slots in (1, 2):
-            got = T.i8_turbo_cells(q_pad, crp, slots=slots)
             want = T.i8_turbo_cells_plain(q_pad, crp, slots=slots)
-            if not torch.equal(got, want):
-                raise AssertionError(
-                    f"kernel C{slots} cells differ ({name}): {int((got != want).sum())} cells"
-                )
+            for label, cells in (("", T.i8_turbo_cells), (" v1", T.i8_turbo_cells_v1)):
+                got = cells(q_pad, crp, slots=slots)
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"kernel C{slots}{label} cells differ ({name}): "
+                        f"{int((got != want).sum())} cells"
+                    )
             for k in (C_ARM, n_super * 128 * slots + 7):  # the second clamps and pads
                 kv, ki = T.dense_topk_fast_i8(crp, q, k=k, n_docs=n, slots=slots)
                 pv, pi = T.dense_topk_fast_i8(crp, q, k=k, n_docs=n, slots=slots, plain=True)
@@ -598,14 +606,23 @@ def phase_kernel_c_s() -> None:
         exact = (q.double() @ crp.double().T).view(b, -1, 128).sum(dim=1)
         wrapped += int((exact != got.double()).sum())
         cases += 1
+    # B=256: two query tiles (C1 in 2-block clusters, C2 unpaired); C2 also
+    # with one part per super and with 16 (parts met by the merge kernel)
+    crp = T.pad_corpus_rows(operands["random"][0].to(dev))
+    q256 = T.quantize_int8(torch.from_numpy(unit_rows(rng, 256, DIM))).to(dev)
+    for slots, max_parts in ((1, None), (2, None), (2, 1), (2, 16)):
+        got = T.i8_turbo_cells(q256, crp, slots=slots, max_parts=max_parts)
+        if not torch.equal(got, T.i8_turbo_cells_plain(q256, crp, slots=slots)):
+            raise AssertionError(f"kernel C{slots} cells differ at B=256, max_parts={max_parts}")
+        cases += 1
     torch.cuda.synchronize()
     if not wrapped:
         raise AssertionError("kernel S: no lane sum wrapped; the wrap case is not covered")
     log(
         f"phase10 kernels C1/C2 and S: {cases} cases (slots 1/2, random, tie-heavy "
-        f"and saturated, N={n}, B={b}, D={DIM}) cells, dense_topk_fast_i8 (k "
-        f"{C_ARM}, capacity+7) and lane sums ({wrapped} wrapped) bit-identical to "
-        "the twins"
+        f"and saturated, N={n}, B={b} and 256, D={DIM}) cells of the TMA + wgmma "
+        f"kernels and of their v1 control, dense_topk_fast_i8 (k {C_ARM}, "
+        f"capacity+7) and lane sums ({wrapped} wrapped) bit-identical to the twins"
     )
 
 
@@ -1223,7 +1240,7 @@ def phase_int4_path(corpus, card, profile: bool) -> list:
             split = device_split(lambda: T.i4_cells(q8, emb, slots=2))
             extra = {
                 "stream_ms": sum(v for k, v in split.items() if "turbo_i4_tma" in k),
-                "merge_ms": sum(v for k, v in split.items() if "i4_merge" in k),
+                "merge_ms": sum(v for k, v in split.items() if "merge_top2" in k),
             }
         log(
             f"kernel E{slots} at B={BATCH}, N={N_DOCS}, D={DIM}: {ab_line(new_ms, old_ms)}; "
@@ -1310,30 +1327,51 @@ def phase_measurement(corpus, card) -> list:
     )
     out = []
     line = "openintel_tpu/ops/pallas/dense_topk.py"
-    probes = (
-        ("turbo_i8_top2", "turbo_i8.cu", f"{line}:535", "C2",
-         lambda: T.i8_turbo_cells(q8, i8, slots=2),
-         lambda: T.i8_turbo_cells_plain(q8, i8, slots=2)),
-        ("turbo_i8", "turbo_i8.cu", f"{line}:507", "C1",
-         lambda: T.i8_turbo_cells(q8, i8, slots=1),
-         lambda: T.i8_turbo_cells_plain(q8, i8, slots=1)),
-        ("dot_only", "dot_only.cu", "scripts/bench_kernel_decomp.py:99", "S",
-         lambda: T.dot_only_cells(q8, i8), lambda: T.dot_only_plain(q8, i8)),
-    )
-    for name, source, replaces, label, kernel, plain in probes:
-        got, want = kernel(), plain()
+    for name, slots, at in (("turbo_i8_top2", 2, 535), ("turbo_i8", 1, 507)):
+        got = T.i8_turbo_cells(q8, i8, slots=slots)
+        want = T.i8_turbo_cells_plain(q8, i8, slots=slots)
+        v1 = T.i8_turbo_cells_v1(q8, i8, slots=slots)
         err = int((got.long() - want.long()).abs().max())
-        if err:
-            raise AssertionError(f"kernel {label} differs from its twin by {err}")
-        ms = cuda_ms(kernel, 10)
-        plain_ms = cuda_ms(plain, 3)
+        v1_err = int((v1.long() - want.long()).abs().max())
+        if err or v1_err:
+            raise AssertionError(f"kernel C{slots} (or v1) differs from its twin by {max(err, v1_err)}")
+        new_ms, old_ms = ab_rounds(
+            lambda: T.i8_turbo_cells(q8, i8, slots=slots),
+            lambda: T.i8_turbo_cells_v1(q8, i8, slots=slots),
+        )
+        ms, v1_ms = statistics.median(new_ms), statistics.median(old_ms)
+        plain_ms = cuda_ms(lambda: T.i8_turbo_cells_plain(q8, i8, slots=slots), 3)
         limit = bound((q8, i8), (got,), product_ops(q8, i8), "int8")
         log(
-            f"kernel {label} at B={BATCH}, N={N_DOCS}, D={DIM}: {ms:.3f} ms vs twin "
-            f"{plain_ms:.3f} ms, bound {limit['bound_ms']:.4f} ms "
-            f"({limit['bound_by']}) [{card}]"
+            f"kernel C{slots} at B={BATCH}, N={N_DOCS}, D={DIM}: {ab_line(new_ms, old_ms)}; "
+            f"twin {plain_ms:.3f} ms; bound {limit['bound_ms']:.4f} ms "
+            f"({limit['bound_by']}), share {limit['bound_ms'] / ms:.3f} (v1 "
+            f"{limit['bound_ms'] / v1_ms:.3f}) [{card}]"
         )
-        out.append(kernel_entry(name, source, replaces, counts[name], err, ms, plain_ms, limit))
+        source, replaces = "turbo_i8_tma.cu", f"{line}:{at}"
+        out.append(kernel_entry(
+            name, source, replaces, counts[name], err, ms, plain_ms, limit, prev_ms=v1_ms,
+        ))
+        out.append(kernel_entry(
+            f"{name}_v1", "turbo_i8.cu", replaces, counts[f"{name}_v1"], v1_err, v1_ms,
+            plain_ms, limit,
+        ))
+    got, want = T.dot_only_cells(q8, i8), T.dot_only_plain(q8, i8)
+    err = int((got.long() - want.long()).abs().max())
+    if err:
+        raise AssertionError(f"kernel S differs from its twin by {err}")
+    ms = cuda_ms(lambda: T.dot_only_cells(q8, i8), 10)
+    plain_ms = cuda_ms(lambda: T.dot_only_plain(q8, i8), 3)
+    limit = bound((q8, i8), (got,), product_ops(q8, i8), "int8")
+    log(
+        f"kernel S at B={BATCH}, N={N_DOCS}, D={DIM}: {ms:.3f} ms vs twin "
+        f"{plain_ms:.3f} ms, bound {limit['bound_ms']:.4f} ms "
+        f"({limit['bound_by']}) [{card}]"
+    )
+    out.append(kernel_entry(
+        "dot_only", "dot_only.cu", "scripts/bench_kernel_decomp.py:99", counts["dot_only"],
+        err, ms, plain_ms, limit,
+    ))
     return out
 
 
@@ -1374,7 +1412,7 @@ def run(quick: bool, profile: bool) -> None:
         raise AssertionError(f"the port imported {leaked[:5]}")
     order = [
         "i8_top2g", "fused_topk", "fused_topk_v1", "turbo_f32", "turbo_i4", "turbo_i4_top2",
-        "turbo_i8", "turbo_i8_top2", "dot_only",
+        "turbo_i8", "turbo_i8_top2", "turbo_i8_v1", "turbo_i8_top2_v1", "dot_only",
     ]
     kernels.sort(key=lambda e: order.index(e["name"]))
     log(json.dumps({"kernels": kernels}))

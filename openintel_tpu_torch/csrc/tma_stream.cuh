@@ -1,7 +1,7 @@
 // The Hopper corpus stream of kernels A (i8_top2g_tma.cu), B on bf16 rows
-// (fused_topk_v2.cu), D on bf16 rows (turbo_bf16_tma.cu) and E1/E2
-// (turbo_i4_tma.cu): TMA loads into a ring of shared-memory tiles, consumed
-// by wgmma.
+// (fused_topk_v2.cu), C1/C2 (turbo_i8_tma.cu), D on bf16 rows
+// (turbo_bf16_tma.cu) and E1/E2 (turbo_i4_tma.cu): TMA loads into a ring
+// of shared-memory tiles, consumed by wgmma.
 //
 // A block holds 128 queries (two consumer warpgroups of 64) and walks work
 // units of (super, lane half, part of the super's 128 sub-blocks). A doc
@@ -9,9 +9,10 @@
 // tile's products are one wgmma n64 per k step, and each consumer thread
 // holds 32 cells (its accumulator fragment). With an even number of query
 // tiles (B = 256: two) the blocks of query tiles 2k and 2k + 1 form a
-// cluster that walks the same units: each block loads half of every doc
-// tile's rows and multicasts it to both, so a doc tile is read from device
-// memory once per 256 queries. The grid is persistent: ctas_per_qt blocks
+// cluster (unless the kernel plans without pairs, as C2) that walks the
+// same units: each block loads half of every doc tile's rows and
+// multicasts it to both, so a doc tile is read from device memory once per
+// 256 queries. The grid is persistent: ctas_per_qt blocks
 // per query tile, each taking units c, c + ctas_per_qt, ...; the host
 // splits supers into parts so the units divide evenly over the blocks.
 //
@@ -57,17 +58,31 @@
 // fold callbacks, 2 the wgmma products too, leaving the stream alone (and
 // the unpack of kernels E); 3 drops kernels E's unpack alone, so wgmma
 // reads its tiles as the unpacked ring last held them; 4 drops all three,
-// leaving E's rings and barriers. The library the port loads is built
-// without it (0).
+// leaving E's rings and barriers; 5 drops the doc loads (the producer
+// arrives on each stage's barrier without loading, and the consumers run
+// on what the ring holds), so the consumers alone set the pace; 6 drops
+// the loads and the fold; 7 the loads and the products, leaving the fold
+// alone; 8 the products alone, leaving the stream and the fold. The
+// library the port loads is built without it (0).
 #ifndef OI_STREAM_ABLATE
 #define OI_STREAM_ABLATE 0
+#endif
+// Measurement builds only: 1 runs every kernel without clusters, so each
+// block loads whole doc tiles itself, also at an even number of query
+// tiles (the multicast and the paired release of stages gone).
+#ifndef OI_STREAM_NO_CLUSTER
+#define OI_STREAM_NO_CLUSTER 0
 #endif
 
 namespace oi_tma {
 
-constexpr bool kFoldOn = OI_STREAM_ABLATE == 0 || OI_STREAM_ABLATE == 3;
-constexpr bool kProductsOn = OI_STREAM_ABLATE != 2 && OI_STREAM_ABLATE != 4;
+constexpr bool kFoldOn = OI_STREAM_ABLATE != 1 && OI_STREAM_ABLATE != 2 &&
+                         OI_STREAM_ABLATE != 4 && OI_STREAM_ABLATE != 6;
+constexpr bool kProductsOn = OI_STREAM_ABLATE != 2 && OI_STREAM_ABLATE != 4 &&
+                             OI_STREAM_ABLATE != 7 && OI_STREAM_ABLATE != 8;
 constexpr bool kUnpackOn = OI_STREAM_ABLATE != 3 && OI_STREAM_ABLATE != 4;
+constexpr bool kLoadsOn =
+    OI_STREAM_ABLATE != 5 && OI_STREAM_ABLATE != 6 && OI_STREAM_ABLATE != 7;
 
 constexpr int kBoxBytes = 128;   // K bytes per TMA box: one swizzled row
 constexpr int kQueryRows = 128;  // queries per block (two warpgroups of 64)
@@ -375,18 +390,22 @@ __device__ __forceinline__ void produce(const Geometry& g, const CUtensorMap* tq
         const int nb = g.n_box - b0 < g.kb ? g.n_box - b0 : g.kb;
         mbar_wait(&r.empty[stage], phase ^ 1);
         uint8_t* dst = r.base + stage * r.stage_bytes;
-        mbar_expect_tx(&r.full[stage], nb * (kDBox + (g.qstream ? kQBox : 0)));
-        for (int bb = 0; bb < nb; ++bb) {
-          const int col = (b0 + bb) * g.box_cols;
-          if (g.cluster > 1)  // this block's half of the rows, to both
-            tma_load_multicast(dst + bb * kDBox + rank * (kDBox / 2), tc,
-                               &r.full[stage], col, row0 + rank * (kDocRows / 2),
-                               0x3);
-          else
-            tma_load(dst + bb * kDBox, tc, &r.full[stage], col, row0);
+        if constexpr (!kLoadsOn) {
+          mbar_arrive(&r.full[stage]);
+        } else {
+          mbar_expect_tx(&r.full[stage], nb * (kDBox + (g.qstream ? kQBox : 0)));
+          for (int bb = 0; bb < nb; ++bb) {
+            const int col = (b0 + bb) * g.box_cols;
+            if (g.cluster > 1)  // this block's half of the rows, to both
+              tma_load_multicast(dst + bb * kDBox + rank * (kDBox / 2), tc,
+                                 &r.full[stage], col, row0 + rank * (kDocRows / 2),
+                                 0x3);
+            else
+              tma_load(dst + bb * kDBox, tc, &r.full[stage], col, row0);
+          }
+          if (g.qstream)  // kb is 1
+            tma_load(dst + kDBox, tq, &r.full[stage], b0 * g.box_cols, q_row);
         }
-        if (g.qstream)  // kb is 1
-          tma_load(dst + kDBox, tq, &r.full[stage], b0 * g.box_cols, q_row);
         next_stage(stage, phase, r.stages);
       }
     }
@@ -411,8 +430,14 @@ __device__ __forceinline__ void produce(const Geometry& g, const CUtensorMap* tq
 // registers (loaded once from the resident tiles), so the tensor cores
 // read only the doc tile from shared memory; 0: both operands from shared
 // memory.
-template <int QREGS, typename Mma, typename Begin, typename Fold,
-          typename Finish>
+// Measurement variants (kernel C's -DOI_C_FOLD, tools/stream_ablation.py)
+// take three accumulator sets: FLIGHT = 2 leaves two groups running at
+// each wait (wait_group 2), so the fold of sub-block p - 2 runs under the
+// products of p - 1 and p; PAIRS (FLIGHT 1) folds sub-blocks two at a
+// time, fold(acc_p, acc_p+1, cell, s, half, p), under the next products.
+// The defaults (two sets, FLIGHT 1, single folds) are the shipped loop.
+template <int QREGS, typename Mma, int FLIGHT = 1, bool PAIRS = false,
+          typename Begin, typename Fold, typename Finish>
 __device__ __forceinline__ void consume(const Geometry& g, const uint8_t* q_s,
                                         uint64_t* qbar, const Ring& r,
                                         int release_blocks, int qt, int cta,
@@ -491,37 +516,131 @@ __device__ __forceinline__ void consume(const Geometry& g, const uint8_t* q_s,
       if (held >= 0) release(held);
       held = static_cast<int>(stage);
       next_stage(stage, phase, r.stages);
-      if (b0 == 0 && fold_prev) {
-        fence_regs(prev);
-        if (live && kFoldOn) fold(prev, cell, s, half, pos - 1);
+      if constexpr (!PAIRS) {  // (pair folds take the loop below)
+        if (b0 == 0 && fold_prev) {
+          fence_regs(prev);
+          if (live && kFoldOn) fold(prev, cell, s, half, pos - 1);
+        }
       }
     }
   };
-  for (int u = cta; u < units; u += g.ctas_per_qt) {
-    const int part = u % g.parts;
-    const int half = (u / g.parts) & 1;
-    const int s = u / (2 * g.parts);
-    const int first = part * per_part;  // per_part is even
-    if (live) begin();
-    for (int pos = first; pos < first + per_part; pos += 2) {
-      run(acc0, acc1, pos, pos > first, s, half);
-      run(acc1, acc0, pos + 1, true, s, half);
+  if constexpr (FLIGHT == 1 && !PAIRS) {
+    for (int u = cta; u < units; u += g.ctas_per_qt) {
+      const int part = u % g.parts;
+      const int half = (u / g.parts) & 1;
+      const int s = u / (2 * g.parts);
+      const int first = part * per_part;  // per_part is even
+      if (live) begin();
+      for (int pos = first; pos < first + per_part; pos += 2) {
+        run(acc0, acc1, pos, pos > first, s, half);
+        run(acc1, acc0, pos + 1, true, s, half);
+      }
+      wgmma_wait<0>();
+      release(held);
+      held = -1;
+      fence_regs(acc1);
+      if (live && kFoldOn) {
+        fold(acc1, cell, s, half, first + per_part - 1);
+        finish(cell, s, half, part);
+      }
     }
-    wgmma_wait<0>();
-    release(held);
-    held = -1;
-    fence_regs(acc1);
-    if (live && kFoldOn) {
-      fold(acc1, cell, s, half, first + per_part - 1);
-      finish(cell, s, half, part);
+  } else {
+    static_assert(FLIGHT == 2 || FLIGHT == 1, "one or two groups in flight");
+    Acc acc2;
+    int held_q[FLIGHT];  // stages whose groups may still run, oldest first
+#pragma unroll
+    for (int i = 0; i < FLIGHT; ++i) held_q[i] = -1;
+    // sub-block pos into cur (m1, m2: the sets of pos - 1 and pos - 2);
+    // after its first stage is issued, fold what is done
+    auto run3 = [&](Acc& cur, Acc& m1, Acc& m2, int pos, int first, int s,
+                    int half) {
+#pragma unroll
+      for (int b0 = 0; b0 < (QREGS > 0 ? QREGS : g.n_box); b0 += KB) {
+        mbar_wait(&r.full[stage], phase);
+        const uint8_t* dtile = r.base + stage * r.stage_bytes;
+        fence_regs(cur);
+        wgmma_fence();
+        if constexpr (!kProductsOn) {
+        } else if constexpr (QREGS > 0) {
+#pragma unroll
+          for (int bb = 0; bb < KB; ++bb) {
+            if (b0 + bb >= QREGS) break;  // compile-time
+#pragma unroll
+            for (int kk = 0; kk < kBoxBytes / 32; ++kk)
+              Mma::rs(cur, qa[4 * (b0 + bb) + kk],
+                      sw128_desc(dtile + bb * kDBox + kk * 32), b0 + bb > 0 || kk > 0);
+          }
+        } else {
+          const uint8_t* qtile =
+              (g.qstream ? dtile + kDBox : q_s + b0 * kQBox) + wg * (kQBox / 2);
+#pragma unroll
+          for (int kk = 0; kk < kBoxBytes / 32; ++kk)
+            Mma::ss(cur, sw128_desc(qtile + kk * 32),
+                    sw128_desc(dtile + kk * 32), b0 > 0 || kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<FLIGHT>();  // every group but the last FLIGHT is done
+        if (held_q[0] >= 0) release(held_q[0]);
+#pragma unroll
+        for (int i = 0; i + 1 < FLIGHT; ++i) held_q[i] = held_q[i + 1];
+        held_q[FLIGHT - 1] = static_cast<int>(stage);
+        next_stage(stage, phase, r.stages);
+        if (b0 != 0 || pos - first < 2) continue;
+        if constexpr (PAIRS) {  // pos - 2 and pos - 1 are done
+          if ((pos - first) & 1) continue;
+          fence_regs(m2);
+          fence_regs(m1);
+          if (live && kFoldOn) fold(m2, m1, cell, s, half, pos - 2);
+        } else {  // pos - 2 is done
+          fence_regs(m2);
+          if (live && kFoldOn) fold(m2, cell, s, half, pos - 2);
+        }
+      }
+    };
+    for (int u = cta; u < units; u += g.ctas_per_qt) {
+      const int part = u % g.parts;
+      const int half = (u / g.parts) & 1;
+      const int s = u / (2 * g.parts);
+      const int first = part * per_part;  // per_part is even, >= 8
+      const int end = first + per_part;
+      if (live) begin();
+      for (int pos = first; pos < end; pos += 3) {  // sets 0, 1, 2 in turn
+        run3(acc0, acc2, acc1, pos, first, s, half);
+        if (pos + 1 < end) run3(acc1, acc0, acc2, pos + 1, first, s, half);
+        if (pos + 2 < end) run3(acc2, acc1, acc0, pos + 2, first, s, half);
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < FLIGHT; ++i) {
+        if (held_q[i] >= 0) release(held_q[i]);
+        held_q[i] = -1;
+      }
+      // the last two sub-blocks, end - 2 (in m2) and end - 1 (in m1)
+      auto tail = [&](Acc& m2, Acc& m1) {
+        fence_regs(m2);
+        fence_regs(m1);
+        if (!(live && kFoldOn)) return;
+        if constexpr (PAIRS) {
+          fold(m2, m1, cell, s, half, end - 2);
+        } else {
+          fold(m2, cell, s, half, end - 2);
+          fold(m1, cell, s, half, end - 1);
+        }
+        finish(cell, s, half, part);
+      };
+      const int last = (per_part - 1) % 3;  // the set of end - 1
+      if (last == 0) tail(acc2, acc0);
+      else if (last == 1) tail(acc0, acc1);
+      else tail(acc1, acc2);
     }
   }
 }
 
-// The stream over a row-major corpus (kernels A and D): the producer
-// thread loads doc tiles into one ring, which the consumers read.
-template <int QREGS, typename Mma, typename Begin, typename Fold,
-          typename Finish>
+// The stream over a row-major corpus (kernels A, C and D): the producer
+// thread loads doc tiles into one ring, which the consumers read (FLIGHT,
+// PAIRS: consume's measurement variants).
+template <int QREGS, typename Mma, int FLIGHT = 1, bool PAIRS = false,
+          typename Begin, typename Fold, typename Finish>
 __device__ __forceinline__ void stream_tiles(const Geometry& g,
                                              const CUtensorMap* tq,
                                              const CUtensorMap* tc,
@@ -559,7 +678,8 @@ __device__ __forceinline__ void stream_tiles(const Geometry& g,
       produce(g, tq, tc, q_s, qbar, r, kSuper, qt, cta, rank);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    consume<QREGS, Mma>(g, q_s, qbar, r, g.cluster, qt, cta, begin, fold, finish);
+    consume<QREGS, Mma, FLIGHT, PAIRS>(g, q_s, qbar, r, g.cluster, qt, cta,
+                                       begin, fold, finish);
   }
 }
 
@@ -906,9 +1026,11 @@ inline int smem_bytes(const Geometry& g) {
 
 // The shared fields of both plans, and the split of supers into parts: the
 // fewest (dividing max_parts, a power of two) that spread the units over
-// the blocks at >= 90 % (else the most even split found).
+// the blocks at >= 90 % (else the most even split found). pair = false: no
+// clusters, each block loads whole doc tiles itself (kernel C2, whose
+// consumers, not the stream, set its pace).
 inline Geometry plan_grid(int row_bytes, int elem_bytes, int b_pad,
-                          int n_super, int max_parts) {
+                          int n_super, int max_parts, bool pair = true) {
   Geometry g{};
   g.row_bytes = row_bytes;
   g.box_cols = kBoxBytes / elem_bytes;
@@ -920,7 +1042,8 @@ inline Geometry plan_grid(int row_bytes, int elem_bytes, int b_pad,
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const int n_qt = (b_pad + kQueryRows - 1) / kQueryRows;
   g.n_qt = n_qt;
-  g.cluster = n_qt % 2 == 0 ? 2 : 1;  // a doc tile loaded once per 256 queries
+  // a doc tile loaded once per 256 queries
+  g.cluster = pair && n_qt % 2 == 0 && !OI_STREAM_NO_CLUSTER ? 2 : 1;
   const int per_qt = sms / n_qt > 1 ? sms / n_qt : 1;
   double best = -1.0;
   for (int parts = 1; parts <= max_parts && parts <= kMaxParts; parts *= 2) {
@@ -940,10 +1063,12 @@ inline Geometry plan_grid(int row_bytes, int elem_bytes, int b_pad,
 
 // The geometry for b_pad queries of row_bytes over n_super supers; a kernel
 // that keeps `reserve` bytes of its own after the stream's (smem_bytes(g)
-// - 1024 past the aligned base) leaves them out of the ring.
+// - 1024 past the aligned base) leaves them out of the ring (pair: as
+// plan_grid's).
 inline Geometry plan(int row_bytes, int elem_bytes, int b_pad, int n_super,
-                     int max_parts, int max_qreg_boxes, int reserve = 0) {
-  Geometry g = plan_grid(row_bytes, elem_bytes, b_pad, n_super, max_parts);
+                     int max_parts, int max_qreg_boxes, int reserve = 0,
+                     bool pair = true) {
+  Geometry g = plan_grid(row_bytes, elem_bytes, b_pad, n_super, max_parts, pair);
   g.qstream = 1024 + g.n_box * kQBox + kMinResidentStages * kDBox + kBarBytes +
                   reserve > kSmemMax;
   g.qregs = g.qstream || g.n_box > max_qreg_boxes ? 0 : g.n_box;
@@ -1011,6 +1136,40 @@ template <typename... Args>
 int launch_stream(void (*kernel)(Args...), const Geometry& g,
                   cudaStream_t stream, Args... args) {
   return launch_stream_smem(kernel, g, smem_bytes(g), stream, args...);
+}
+
+// Where the parts of a super meet for a top-2 kernel (E2, C2): cell (row,
+// col) of `out` (b_pad, 2 * half_w) and of each of the parts - 1 buffers
+// of `parts_out` (the same layout) hold top-2s of disjoint key sets; out
+// gets their top-2 by the reference's combine, a2 = max(min(a1, b1),
+// max(a2, b2)), exact for distinct keys and so order-free
+// (merge_part_cells_plain is its twin). A template, like fill below.
+template <typename T>
+__global__ void merge_top2_kernel(T* __restrict__ out,
+                                  const T* __restrict__ parts_out, int b_pad,
+                                  int half_w, int parts) {
+  const size_t idx = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+  if (idx >= (size_t)b_pad * half_w) return;
+  const size_t o = idx / half_w * 2 * half_w + idx % half_w;
+  const size_t stride = (size_t)b_pad * 2 * half_w;  // per buffer
+  T a1 = out[o], a2 = out[o + half_w];
+  for (int p = 0; p + 1 < parts; ++p) {
+    const T b1 = parts_out[p * stride + o];
+    const T b2 = parts_out[p * stride + o + half_w];
+    a2 = max(min(a1, b1), max(a2, b2));
+    a1 = max(a1, b1);
+  }
+  out[o] = a1;
+  out[o + half_w] = a2;
+}
+
+template <typename T>
+int merge_top2(T* out, const T* parts_out, int b_pad, int half_w, int parts,
+               cudaStream_t stream) {
+  const size_t n = (size_t)b_pad * half_w;
+  merge_top2_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      out, parts_out, b_pad, half_w, parts);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>

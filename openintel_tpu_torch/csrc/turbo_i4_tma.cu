@@ -41,7 +41,8 @@
 // each part writes its (top-1, top-2) to its own buffer (part 0: the
 // output), and a second kernel in the same call merges them by the
 // reference's combine, a2 = max(min(a1, b1), max(a2, b2)), exact for
-// distinct keys and so order-free (i4_merge_parts_plain is its twin).
+// distinct keys and so order-free (merge_top2 of tma_stream.cuh, which
+// kernel C2 shares; merge_part_cells_plain is its twin).
 
 #include <climits>
 #include <cstdint>
@@ -107,26 +108,6 @@ turbo_i4_tma_kernel(const __grid_constant__ CUtensorMap tq,
       });
 }
 
-// E2's parts met: cell (row, col) of `out` and of each buffer of
-// `parts_out` hold top-2s of disjoint key sets; out gets their top-2.
-__global__ void i4_merge_kernel(int32_t* __restrict__ out,
-                                const int32_t* __restrict__ parts_out,
-                                int b_pad, int half_w, int parts) {
-  const size_t idx = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
-  if (idx >= (size_t)b_pad * half_w) return;
-  const size_t o = idx / half_w * 2 * half_w + idx % half_w;
-  const size_t stride = (size_t)b_pad * 2 * half_w;  // per buffer
-  int32_t a1 = out[o], a2 = out[o + half_w];
-  for (int p = 0; p + 1 < parts; ++p) {
-    const int32_t b1 = parts_out[p * stride + o];
-    const int32_t b2 = parts_out[p * stride + o + half_w];
-    a2 = max(min(a1, b1), max(a2, b2));
-    a1 = max(a1, b1);
-  }
-  out[o] = a1;
-  out[o + half_w] = a2;
-}
-
 template <int SLOTS>
 int launch_i4(const CUtensorMap& tq, const CUtensorMap& tc, int32_t* out,
               int32_t* parts_out, const Geometry& g, int p_stages,
@@ -173,10 +154,7 @@ extern "C" int oi_turbo_i4_tma(const void* q, const void* corpus, void* out,
     }
     return launch_i4<1>(tq, tc, o, po, g, p_stages, st);
   }
-  int err = launch_i4<2>(tq, tc, o, po, g, p_stages, st);
+  const int err = launch_i4<2>(tq, tc, o, po, g, p_stages, st);
   if (err || g.parts == 1) return err;
-  const size_t n = (size_t)b_pad * half_w;
-  i4_merge_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(o, po, b_pad,
-                                                             half_w, g.parts);
-  return (int)cudaGetLastError();
+  return merge_top2(o, po, b_pad, half_w, g.parts, st);
 }

@@ -72,6 +72,8 @@ _SIGNATURES = {
     "oi_turbo_i4_tma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, corpus, out, slots, b_pad, dim, n_super, stream
     "oi_turbo_i8": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # q, corpus, out, parts_out, slots, b_pad, dim, n_super, max_parts, stream
+    "oi_turbo_i8_tma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, corpus, out, b_pad, dim, n_super, stream
     "oi_dot_only": [_P, _P, _P, _I, _I, _I, _P],
 }

@@ -26,10 +26,12 @@ Counterparts of :mod:`openintel_tpu.ops.pallas.dense_topk`:
   stream, each packed tile unpacked once per block in shared memory; the
   ``mma.sync`` kernel of ``csrc/turbo_i4.cu`` stays as the A/B control
   (:func:`i4_cells_v1`);
-- kernels C1/C2, ``csrc/turbo_i8.cu`` (replace ``_turbo_kernel_i8`` and
-  ``_turbo_kernel_i8_top2``): the per-super int8 candidate cells of
+- kernels C1/C2, ``csrc/turbo_i8_tma.cu`` (replace ``_turbo_kernel_i8``
+  and ``_turbo_kernel_i8_top2``): the per-super int8 candidate cells of
   :func:`dense_topk_fast_i8`, which the candidate-pass measurement tools
-  (``openintel_tpu_torch.tools``) run;
+  (``openintel_tpu_torch.tools``) run, on kernel A's stream; the
+  ``mma.sync`` kernel of ``csrc/turbo_i8.cu`` stays as the A/B control
+  (:func:`i8_turbo_cells_v1`);
 - kernel S, ``csrc/dot_only.cu`` (replaces ``_dot_only_kernel`` of
   ``scripts/bench_kernel_decomp.py``): :func:`dot_only`, the int8
   stream-floor probe;
@@ -104,9 +106,10 @@ _I4_SUPER_B = _SUPER // 2  # byte sub-tiles (of 128 byte rows) per super
 _I4_DIM_LIMIT = 8_000  # D below it keeps dot * 128 + _I8_FLAG128 in (0, 2**31)
 _INT32_MIN = -(2**31)
 _TWIN_CHUNK_SUPERS = 8  # supers per product in the plain twins of C, D, E, S
-# Parts a super may be split into by kernels E (E1 meets by atomicMax, E2
-# through buffers merged by a second kernel; PERF.md has E2's measurement)
-_E_MAX_PARTS = {1: 16, 2: 2}
+# Parts a super may be split into by kernels C and E, by slot count (slots
+# 1 meet by atomicMax, slots 2 through buffers merged by a second kernel;
+# PERF.md has E2's and C2's measurements)
+_MAX_PARTS = {1: 16, 2: 2}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -570,23 +573,105 @@ def _finish(vals, ids, valid, b, k_req):
     return _pad_columns(out_vals, out_ids, k_req)
 
 
-def _check_i8_operands(name, queries, corpus) -> int:
+def _check_i8_operands(name, queries, corpus, *, staged: bool = True) -> int:
     """Kernels C and S take kernel A's operands: int8 queries padded to the
     32-query tile and the row-major (N_pad, D) int8 corpus. Returns
-    n_super."""
+    n_super. ``staged``: the 32-query tile of the ``mma.sync`` kernels sits
+    whole in shared memory."""
     if queries.dtype != torch.int8 or corpus.dtype != torch.int8:
         raise TypeError(f"{name} takes int8 queries and corpus")
     n_pad = corpus.shape[0]
     if n_pad % _TURBO_UNIT or n_pad == 0:
         raise ValueError(f"{name}: corpus rows {n_pad} off the 16,384-doc unit")
-    _check_turbo_operands(name, queries, corpus, queries.shape[1])
+    _check_turbo_operands(name, queries, corpus, queries.shape[1], staged=staged)
     return n_pad // _TURBO_UNIT
+
+
+def _check_parts(parts: int, slots: int) -> None:
+    if parts < 1 or _SUPER % parts or _SUPER // parts < slots:
+        raise ValueError(f"parts must divide 128 into runs of >= {slots}, got {parts}")
+
+
+def _part_tops(chunks, queries, n_super: int, slots: int, parts: int) -> torch.Tensor:
+    """The twins of kernels C and E: per part of each super's 128 sub-blocks,
+    the top ``slots`` of each cell's keys (distinct, so unique), from a key
+    generator as :func:`_i8_key_chunks` yields. Returns (parts, B_pad,
+    slots * n_super * 128) int32, slot j's half after slot j - 1's."""
+    b_pad = queries.shape[0]
+    half = n_super * 128
+    out = torch.empty((parts, b_pad, slots * half), dtype=torch.int32, device=queries.device)
+    for lo, hi, keys in chunks:
+        runs = keys.view(b_pad, hi - lo, parts, _SUPER // parts, 128)
+        top = torch.topk(runs, slots, dim=3).values.permute(2, 0, 1, 3, 4)
+        for j in range(slots):  # top: (parts, b_pad, supers, slot, lane)
+            out[:, :, j * half + lo * 128 : j * half + hi * 128] = (
+                top[:, :, :, j].reshape(parts, b_pad, -1)
+            )
+    return out
+
+
+def _launch_cells(entry, queries, corpus, n_super, slots, max_parts) -> torch.Tensor:
+    """Kernels C's or E's stream kernel (``entry``) on checked CUDA
+    operands: (B_pad, slots * n_super * 128) int32 cells, supers split into
+    at most ``max_parts`` parts (default ``_MAX_PARTS``)."""
+    max_parts = _MAX_PARTS[slots] if max_parts is None else max_parts
+    if max_parts < 1:
+        raise ValueError(f"max_parts must be >= 1, got {max_parts}")
+    b_pad, dim = queries.shape
+    dev = queries.device
+    out = torch.empty((b_pad, slots * n_super * 128), dtype=torch.int32, device=dev)
+    # slots 2: the parts after the first write buffers of their own; slots 1
+    # meet in out
+    n_scratch = (max_parts - 1) * out.numel() if slots == 2 else 0
+    parts_out = torch.empty((n_scratch,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        _kernels.launch(
+            entry,
+            _kernels.ptr(queries), _kernels.ptr(corpus), _kernels.ptr(out),
+            _kernels.ptr(parts_out), slots, b_pad, dim, n_super, max_parts,
+            _kernels.stream_of(queries),
+        )
+    return out
+
+
+def _launch_cells_v1(entry, queries, corpus, n_super, slots) -> torch.Tensor:
+    """Kernels C's or E's ``mma.sync`` control (``entry``) on checked CUDA
+    operands."""
+    b_pad, dim = queries.shape
+    out = torch.empty(
+        (b_pad, slots * n_super * 128), dtype=torch.int32, device=queries.device
+    )
+    with torch.cuda.device(queries.device):
+        _kernels.launch(
+            entry,
+            _kernels.ptr(queries), _kernels.ptr(corpus), _kernels.ptr(out),
+            slots, b_pad, dim, n_super, _kernels.stream_of(queries),
+        )
+    return out
 
 
 # ---------------------------------------------------------------------------
 # Kernels C1/C2: int8 candidate cells, top-1 or top-2 keys per (query,
 # super, lane).
 # ---------------------------------------------------------------------------
+
+
+def _i8_key_chunks(queries: torch.Tensor, corpus: torch.Tensor):
+    """Kernels C's keys, a few supers at a time: yields (lo, hi, keys) with
+    keys (B_pad, hi - lo, 128 pos, 128 lanes) int32 for supers lo .. hi - 1.
+    The dots run as a float32 product with TF32 off: every partial sum is
+    an integer below 2**24."""
+    require_true_f32()
+    b_pad = queries.shape[0]
+    n_super = corpus.shape[0] // _TURBO_UNIT
+    qf = queries.float()
+    pos = (_I8_FLAG128 + torch.arange(_SUPER, dtype=torch.int32, device=queries.device))
+    pos = pos[None, None, :, None]
+    for lo in range(0, n_super, _TWIN_CHUNK_SUPERS):
+        hi = min(lo + _TWIN_CHUNK_SUPERS, n_super)
+        docs = corpus[lo * _TURBO_UNIT : hi * _TURBO_UNIT].float()
+        dots = (qf @ docs.T).to(torch.int32).view(b_pad, hi - lo, _SUPER, 128)
+        yield lo, hi, dots * 128 + pos
 
 
 def i8_turbo_cells_plain(
@@ -605,53 +690,65 @@ def i8_turbo_cells_plain(
     first, then all their slot-2 keys (the reference's ``concat(p1, p2)``).
     A cell's keys are distinct (pos differs), so its top-2 is unique and
     depends on neither the walk order nor ``block_c``. Zero-padded docs
-    give real keys; only the decode drops them. The dots run as a float32
-    product with TF32 off: every partial sum is an integer below 2**24."""
-    require_true_f32()
-    b_pad = queries.shape[0]
+    give real keys; only the decode drops them."""
     n_super = corpus.shape[0] // _TURBO_UNIT
-    half = n_super * 128
-    dev = queries.device
-    qf = queries.float()
-    out = torch.empty((b_pad, slots * half), dtype=torch.int32, device=dev)
-    pos = (_I8_FLAG128 + torch.arange(_SUPER, dtype=torch.int32, device=dev))
-    pos = pos[None, None, :, None]
-    for lo in range(0, n_super, _TWIN_CHUNK_SUPERS):
-        hi = min(lo + _TWIN_CHUNK_SUPERS, n_super)
-        docs = corpus[lo * _TURBO_UNIT : hi * _TURBO_UNIT].float()
-        dots = (qf @ docs.T).to(torch.int32).view(b_pad, hi - lo, _SUPER, 128)
-        top = torch.topk(dots * 128 + pos, slots, dim=2).values  # distinct keys
-        for j in range(slots):
-            out[:, j * half + lo * 128 : j * half + hi * 128] = top[:, :, j].reshape(b_pad, -1)
-    return out
+    return _part_tops(_i8_key_chunks(queries, corpus), queries, n_super, slots, 1)[0]
 
 
-def i8_turbo_cells(queries: torch.Tensor, corpus: torch.Tensor, *, slots: int) -> torch.Tensor:
-    """Kernel C1 (``slots=1``) or C2 (``slots=2``) of ``csrc/turbo_i8.cu`` on
-    CUDA tensors; their plain twin on CPU tensors. Same contract as
-    :func:`i8_turbo_cells_plain`. ``launches`` counts each slot count
-    apart."""
+def i8_turbo_part_cells_plain(
+    queries: torch.Tensor, corpus: torch.Tensor, *, slots: int, parts: int
+) -> torch.Tensor:
+    """Plain twin of kernels C's parts before they meet
+    (``csrc/turbo_i8_tma.cu`` splits each super's 128 sub-blocks into
+    ``parts`` runs of 128 / parts). Returns (parts, B_pad, slots * n_super *
+    128) int32: buffer p holds, in :func:`i8_turbo_cells_plain`'s layout,
+    the top ``slots`` keys of each cell over pos in [p * 128 / parts,
+    (p + 1) * 128 / parts). :func:`merge_part_cells_plain` meets them."""
+    _check_parts(parts, slots)
+    n_super = corpus.shape[0] // _TURBO_UNIT
+    return _part_tops(_i8_key_chunks(queries, corpus), queries, n_super, slots, parts)
+
+
+def i8_turbo_cells(
+    queries: torch.Tensor, corpus: torch.Tensor, *, slots: int, max_parts: int | None = None
+) -> torch.Tensor:
+    """Kernel C1 (``slots=1``) or C2 (``slots=2``) on CUDA tensors: kernel
+    A's TMA + wgmma stream (``csrc/turbo_i8_tma.cu``); their plain twin on
+    CPU tensors. Same contract as :func:`i8_turbo_cells_plain`, any D (a
+    multiple of 16). ``max_parts`` caps the parts a super is split into
+    for an even spread over the SMs (default ``_MAX_PARTS``); the cells
+    do not depend on it. ``launches`` counts each slot count apart."""
     if slots not in (1, 2):
         raise ValueError(f"slots must be 1 or 2, got {slots}")
     if queries.device.type == "cpu" and corpus.device.type == "cpu":
         return i8_turbo_cells_plain(queries, corpus, slots=slots)
     _require_cuda(queries, corpus)
-    n_super = _check_i8_operands("kernels C", queries, corpus)
-    b_pad, dim = queries.shape
-    out = torch.empty(
-        (b_pad, slots * n_super * 128), dtype=torch.int32, device=queries.device
-    )
-    with torch.cuda.device(queries.device):
-        _kernels.launch(
-            "oi_turbo_i8",
-            _kernels.ptr(queries), _kernels.ptr(corpus), _kernels.ptr(out),
-            slots, b_pad, dim, n_super, _kernels.stream_of(queries),
-        )
+    n_super = _check_i8_operands("kernels C", queries, corpus, staged=False)
+    out = _launch_cells("oi_turbo_i8_tma", queries, corpus, n_super, slots, max_parts)
     i8_turbo_cells.launches[slots] += 1
     return out
 
 
 i8_turbo_cells.launches = {1: 0, 2: 0}
+
+
+def i8_turbo_cells_v1(queries: torch.Tensor, corpus: torch.Tensor, *, slots: int) -> torch.Tensor:
+    """Kernels C's ``mma.sync`` version (``csrc/turbo_i8.cu``), the control
+    of A/B runs; its plain twin on CPU tensors. Same contract as
+    :func:`i8_turbo_cells_plain`; its 32-query tile must fit in shared
+    memory."""
+    if slots not in (1, 2):
+        raise ValueError(f"slots must be 1 or 2, got {slots}")
+    if queries.device.type == "cpu" and corpus.device.type == "cpu":
+        return i8_turbo_cells_plain(queries, corpus, slots=slots)
+    _require_cuda(queries, corpus)
+    n_super = _check_i8_operands("kernels C v1", queries, corpus)
+    out = _launch_cells_v1("oi_turbo_i8", queries, corpus, n_super, slots)
+    i8_turbo_cells_v1.launches[slots] += 1
+    return out
+
+
+i8_turbo_cells_v1.launches = {1: 0, 2: 0}
 
 
 def dense_topk_fast_i8(
@@ -972,14 +1069,8 @@ def i4_cells_plain(
 
     for doc s * 16384 + 2 * (byte_tile * 128 + lane) + parity. A cell's keys
     are distinct, so its top-2 is unique."""
-    b_pad = queries.shape[0]
-    half = corpus.shape[0] // (_TURBO_UNIT // 2) * 128
-    out = torch.empty((b_pad, slots * half), dtype=torch.int32, device=queries.device)
-    for lo, hi, keys in _i4_key_chunks(queries, corpus):
-        top = torch.topk(keys, slots, dim=2).values  # distinct keys
-        for j in range(slots):
-            out[:, j * half + lo * 128 : j * half + hi * 128] = top[:, :, j].reshape(b_pad, -1)
-    return out
+    n_super = corpus.shape[0] // (_TURBO_UNIT // 2)
+    return _part_tops(_i4_key_chunks(queries, corpus), queries, n_super, slots, 1)[0]
 
 
 def i4_part_cells_plain(
@@ -990,27 +1081,19 @@ def i4_part_cells_plain(
     Returns (parts, B_pad, slots * n_super * 128) int32: buffer p holds, in
     :func:`i4_cells_plain`'s layout, the top ``slots`` keys of each cell
     over pos in [p * 128 / parts, (p + 1) * 128 / parts)."""
-    if parts < 1 or _SUPER % parts or _SUPER // parts < slots:
-        raise ValueError(f"parts must divide 128 into runs of >= {slots}, got {parts}")
-    b_pad = queries.shape[0]
-    half = corpus.shape[0] // (_TURBO_UNIT // 2) * 128
-    out = torch.empty((parts, b_pad, slots * half), dtype=torch.int32, device=queries.device)
-    for lo, hi, keys in _i4_key_chunks(queries, corpus):
-        runs = keys.view(b_pad, hi - lo, parts, _SUPER // parts, 128)
-        top = torch.topk(runs, slots, dim=3).values.permute(2, 0, 1, 3, 4)
-        for j in range(slots):  # top: (parts, b_pad, supers, slot, lane)
-            out[:, :, j * half + lo * 128 : j * half + hi * 128] = (
-                top[:, :, :, j].reshape(parts, b_pad, -1)
-            )
-    return out
+    _check_parts(parts, slots)
+    n_super = corpus.shape[0] // (_TURBO_UNIT // 2)
+    return _part_tops(_i4_key_chunks(queries, corpus), queries, n_super, slots, parts)
 
 
-def i4_merge_parts_plain(part_cells: torch.Tensor, *, slots: int) -> torch.Tensor:
-    """Plain twin of where kernels E's parts meet: the cells of
-    :func:`i4_part_cells_plain`'s buffers (disjoint key sets) merged into
-    :func:`i4_cells_plain`'s. E1 takes the max (``atomicMax``); E2 folds the
-    buffers in order by the reference's combine, ``a2 = max(min(a1, b1),
-    max(a2, b2))``, exact for distinct keys, so the order does not matter."""
+def merge_part_cells_plain(part_cells: torch.Tensor, *, slots: int) -> torch.Tensor:
+    """Plain twin of where kernels C's and E's parts meet: the cells of
+    :func:`i8_turbo_part_cells_plain`'s or :func:`i4_part_cells_plain`'s
+    buffers (disjoint key sets) merged into the whole cells. Slots 1 take
+    the max (``atomicMax``); slots 2 fold the buffers in order by the
+    reference's combine, ``a2 = max(min(a1, b1), max(a2, b2))``
+    (``merge_top2`` of ``csrc/tma_stream.cuh``), exact for distinct keys,
+    so the order does not matter."""
     if slots == 1:
         return part_cells.amax(dim=0)
     half = part_cells.shape[2] // 2
@@ -1046,7 +1129,7 @@ def i4_cells(
     unpack in shared memory and wgmma (``csrc/turbo_i4_tma.cu``); their
     plain twin on CPU tensors. Same contract as :func:`i4_cells_plain`.
     ``max_parts`` caps the parts a super is split into for an even spread
-    over the SMs (default ``_E_MAX_PARTS``); the cells do not depend on it.
+    over the SMs (default ``_MAX_PARTS``); the cells do not depend on it.
     ``launches`` counts each slot count apart."""
     if slots not in (1, 2):
         raise ValueError(f"slots must be 1 or 2, got {slots}")
@@ -1054,22 +1137,7 @@ def i4_cells(
         return i4_cells_plain(queries, corpus, slots=slots)
     _require_cuda(queries, corpus)
     n_super = _check_i4_operands("kernels E", queries, corpus, staged=False)
-    max_parts = _E_MAX_PARTS[slots] if max_parts is None else max_parts
-    if max_parts < 1:
-        raise ValueError(f"max_parts must be >= 1, got {max_parts}")
-    b_pad, dim = queries.shape
-    dev = queries.device
-    out = torch.empty((b_pad, slots * n_super * 128), dtype=torch.int32, device=dev)
-    # E2's parts after the first write buffers of their own; E1's meet in out
-    n_scratch = (max_parts - 1) * out.numel() if slots == 2 else 0
-    parts_out = torch.empty((n_scratch,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        _kernels.launch(
-            "oi_turbo_i4_tma",
-            _kernels.ptr(queries), _kernels.ptr(corpus), _kernels.ptr(out),
-            _kernels.ptr(parts_out), slots, b_pad, dim, n_super, max_parts,
-            _kernels.stream_of(queries),
-        )
+    out = _launch_cells("oi_turbo_i4_tma", queries, corpus, n_super, slots, max_parts)
     i4_cells.launches[slots] += 1
     return out
 
@@ -1087,16 +1155,7 @@ def i4_cells_v1(queries: torch.Tensor, corpus: torch.Tensor, *, slots: int) -> t
         return i4_cells_plain(queries, corpus, slots=slots)
     _require_cuda(queries, corpus)
     n_super = _check_i4_operands("kernels E v1", queries, corpus, staged=True)
-    b_pad, dim = queries.shape
-    out = torch.empty(
-        (b_pad, slots * n_super * 128), dtype=torch.int32, device=queries.device
-    )
-    with torch.cuda.device(queries.device):
-        _kernels.launch(
-            "oi_turbo_i4",
-            _kernels.ptr(queries), _kernels.ptr(corpus), _kernels.ptr(out),
-            slots, b_pad, dim, n_super, _kernels.stream_of(queries),
-        )
+    out = _launch_cells_v1("oi_turbo_i4", queries, corpus, n_super, slots)
     i4_cells_v1.launches[slots] += 1
     return out
 
@@ -1444,6 +1503,7 @@ def reset_launch_counts() -> None:
     i4_cells.launches = {1: 0, 2: 0}
     i4_cells_v1.launches = {1: 0, 2: 0}
     i8_turbo_cells.launches = {1: 0, 2: 0}
+    i8_turbo_cells_v1.launches = {1: 0, 2: 0}
     dot_only_cells.launches = 0
 
 
@@ -1464,5 +1524,7 @@ def launch_counts() -> dict[str, int]:
         "turbo_i4_top2_v1": i4_cells_v1.launches[2],
         "turbo_i8": i8_turbo_cells.launches[1],
         "turbo_i8_top2": i8_turbo_cells.launches[2],
+        "turbo_i8_v1": i8_turbo_cells_v1.launches[1],
+        "turbo_i8_top2_v1": i8_turbo_cells_v1.launches[2],
         "dot_only": dot_only_cells.launches,
     }

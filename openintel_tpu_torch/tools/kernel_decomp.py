@@ -6,10 +6,17 @@ tiles:
 
 - dot-only: kernel S (``csrc/dot_only.cu``), the products summed per lane,
   with no key pack or fold: the stream and tensor-core floor;
-- fold-only: kernel C2 (``csrc/turbo_i8.cu``), the key pack and top-2 fold,
-  its cells written out and not reduced;
+- fold-only: kernel C2 (``csrc/turbo_i8_tma.cu``), the key pack and top-2
+  fold, its cells written out and not reduced;
 - slots=1 / slots=2: ``dense_topk_fast_i8`` at k=32, kernel C1 or C2 plus
   the candidate selection and decode, the whole candidate pass.
+
+Each row's label names the stream its kernel runs on: S still runs on the
+``mma.sync`` loop of ``csrc/turbo_common.cuh``, C1 and C2 on the TMA +
+wgmma stream of ``csrc/tma_stream.cuh``. Until S moves onto that stream,
+the dot-only and fold-only rows time two different streams, and
+subtracting one from the other means nothing; the same-stream split of C2
+into its stream, products and fold is ``tools/stream_ablation.py``'s.
 
 The port's selection is an exact top-k (ties to the lower column) where the
 reference ran ``approx_max_k``; the rows say "+select".
@@ -29,6 +36,10 @@ import torch
 
 from openintel_tpu_torch.ops import dense_topk as T
 from openintel_tpu_torch.tools import common
+
+# the stream each probe's kernel runs on
+MMA_SYNC = "[mma.sync loop]"
+TMA_STREAM = "[TMA+wgmma stream]"
 
 
 def decompose(
@@ -50,13 +61,13 @@ def decompose(
         )
 
     probes = [
-        ("dot-only (MXU+stream floor)", lambda i: T.dot_only(corpus, q8s[i])),
+        (f"dot-only (MXU+stream floor) {MMA_SYNC}", lambda i: T.dot_only(corpus, q8s[i])),
         (
-            "fold-only (pack+2max, no topk)",
+            f"fold-only (pack+2max, no topk) {TMA_STREAM}",
             lambda i: T.i8_turbo_cells(q_pad[i], corpus, slots=2),
         ),
-        ("turbo slots=1 (+select+dec)", candidates(1)),
-        ("turbo slots=2 (+select+dec)", candidates(2)),
+        (f"turbo slots=1 (+select+dec) {TMA_STREAM}", candidates(1)),
+        (f"turbo slots=2 (+select+dec) {TMA_STREAM}", candidates(2)),
     ]
     rows = []
     for label, run in probes:

@@ -1,9 +1,10 @@
-"""Where the time of kernels A, D, E2 and E1 goes on the TMA + wgmma stream,
-and of kernel B (v2) on its cp.async ring.
+"""Where the time of kernels A, C2, C1, D, E2 and E1 goes on the TMA + wgmma
+stream, and of kernel B (v2) on its cp.async ring.
 
-Each kernel of ``csrc/tma_stream.cuh`` (A, ``csrc/i8_top2g_tma.cu``; D on
-bf16 rows, ``csrc/turbo_bf16_tma.cu``; E2 and E1, ``csrc/turbo_i4_tma.cu``)
-is built several ways and timed at the main path's shapes:
+Each kernel of ``csrc/tma_stream.cuh`` (A, ``csrc/i8_top2g_tma.cu``; C2
+and C1, ``csrc/turbo_i8_tma.cu``; D on bf16 rows,
+``csrc/turbo_bf16_tma.cu``; E2 and E1, ``csrc/turbo_i4_tma.cu``) is built
+several ways and timed at the main path's shapes:
 
 - full: as the port ships it;
 - no-fold: the fold callbacks compiled out (``-DOI_STREAM_ABLATE=1``): the
@@ -15,6 +16,28 @@ is built several ways and timed at the main path's shapes:
   bytes, so the time is all this variant gives;
 - ring, E only: the unpack, the products and the fold compiled out
   (``-DOI_STREAM_ABLATE=4``): E's TMA loads and its two rings' barriers.
+
+A, C2, C1, E2 and E1 also run with the doc loads compiled out
+(``-DOI_STREAM_ABLATE=5``, no-load: the producer arrives on each stage
+without loading, so the consumers alone set the pace; 6, no-load no-fold:
+the fold dropped too; 7, fold alone: the products dropped instead), and
+with the products alone compiled out (8, no-product: the stream and the
+fold). After each kernel's rounds the card's SM clock is read
+(``nvidia-smi``), so that times can be turned into clocks.
+
+Kernels C2 and C1 also run the ways of hiding their fold that were built
+as measurement variants: two-in-flight (``-DOI_C_FOLD=1``: three
+accumulator sets, two wgmma groups left running at each wait; with its
+own no-fold), pair-fold (``-DOI_C_FOLD=2``: two sub-blocks folded at a
+time by Hopper's three-input max), split-pipes (``-DOI_C_FOLD=3``: C2's
+slot 2 on the float pipe, exact up to D=505) and q-smem
+(``-DOI_C_QSMEM=1``: wgmma reads the queries from shared memory, not
+registers; with its no-fold, no-load and no-load no-fold). At B=256 also
+no-cluster (``-DOI_STREAM_NO_CLUSTER=1``: each block loads whole doc
+tiles itself, no multicast, no paired release of stages; with its own
+no-fold and stream) and, for C2, which is served unpaired, paired
+(``-DOI_C_PAIRED=1``: in 2-block clusters, as C1). C2 also runs with 1
+and 4 parts per super (as built: up to 2).
 
 Kernel B (``csrc/fused_topk_v2.cu``) takes the same flags: no-fold drops
 its selection, stream its products too. On its ``cp.async`` ring (``B
@@ -34,13 +57,16 @@ variants keep. E2 is also timed with one part per super (as built it
 splits supers into up to two, met by a merge kernel). The variants of a
 (kernel, batch) run in turns, round after
 round; a variant that takes as long as the full kernel shows that what it
-dropped is not what bounds it. Batches of 128 queries (one query tile:
-each doc tile read once per block) and 256 (two tiles, paired in 2-block
-clusters). The operands are random, made on the card from a seed; the
-variants' outputs are not results.
+dropped is not what bounds it. The variants of C that still compute its
+cells (as built, no-cluster, two-in-flight, pair-fold, split-pipes,
+q-smem, paired) are first held to the twin, bit for bit, and each row
+says whether they agreed. Batches of 128 queries (one query tile: each
+doc tile read once per block) and 256 (two tiles, paired in 2-block
+clusters but for C2). The operands are random, made on the card from a
+seed; the outputs of the variants that drop work are not results.
 
     python -m openintel_tpu_torch.tools.stream_ablation [N_DOCS] [--reps R]
-        [--kernels 'B bf16,B bf16 stream'] [--batches 256]
+        [--kernels 'B bf16,B bf16 stream'] [--batches 256] [--variants full,no-fold]
 
 Runs on the card only (the variants are CUDA builds).
 """
@@ -49,6 +75,7 @@ from __future__ import annotations
 
 import argparse
 import statistics
+import subprocess
 import sys
 
 import torch
@@ -67,8 +94,37 @@ VARIANTS = {
     "no-shared": ("-DOI_B_SELECT=2",),
     "quad-compact": ("-DOI_B_COMPACT=1",),
     "unrolled-sort": ("-DOI_B_COMPACT=2",),
+    "no-cluster": ("-DOI_STREAM_NO_CLUSTER=1",),
+    "no-cluster no-fold": ("-DOI_STREAM_NO_CLUSTER=1", "-DOI_STREAM_ABLATE=1"),
+    "no-cluster stream": ("-DOI_STREAM_NO_CLUSTER=1", "-DOI_STREAM_ABLATE=2"),
+    "two-in-flight": ("-DOI_C_FOLD=1",),
+    "two-in-flight no-fold": ("-DOI_C_FOLD=1", "-DOI_STREAM_ABLATE=1"),
+    "pair-fold": ("-DOI_C_FOLD=2",),
+    "split-pipes": ("-DOI_C_FOLD=3",),
+    "paired": ("-DOI_C_PAIRED=1",),
+    "no-load": ("-DOI_STREAM_ABLATE=5",),
+    "no-load no-fold": ("-DOI_STREAM_ABLATE=6",),
+    "fold alone": ("-DOI_STREAM_ABLATE=7",),
+    "no-product": ("-DOI_STREAM_ABLATE=8",),
+    "q-smem": ("-DOI_C_QSMEM=1",),
+    "q-smem no-fold": ("-DOI_C_QSMEM=1", "-DOI_STREAM_ABLATE=1"),
+    "q-smem no-load": ("-DOI_C_QSMEM=1", "-DOI_STREAM_ABLATE=5"),
+    "q-smem no-load no-fold": ("-DOI_C_QSMEM=1", "-DOI_STREAM_ABLATE=6"),
 }
 STREAM = ("full", "no-fold", "stream")  # the variants of A, B and D
+# the consumers alone: the loads compiled out, with and without the fold,
+# and the fold alone; and the stream with the fold but no products
+NO_LOAD = ("no-load", "no-load no-fold", "fold alone", "no-product")
+# kernels C: also the ways of hiding the fold (the cluster only at B=256)
+# and the queries read from shared memory
+C_FOLD = (
+    *STREAM, *NO_LOAD, "two-in-flight", "two-in-flight no-fold", "pair-fold", "split-pipes",
+    "q-smem", "q-smem no-fold", "q-smem no-load", "q-smem no-load no-fold",
+)
+C_CLUSTER = ("no-cluster", "no-cluster no-fold", "no-cluster stream")
+E_STREAM = (*STREAM, "no-unpack", "ring", *NO_LOAD)  # kernels E: also the unpack
+# variants that still compute kernels C's cells: each is held to the twin
+C_EXACT = ("full", "no-cluster", "two-in-flight", "pair-fold", "split-pipes", "q-smem", "paired")
 # kernel B's stream route (bf16 rows): also its selection's tests alone,
 # without the threshold the blocks share, and the other two compactions
 B_STREAM = (*STREAM, "tests-only", "no-shared", "quad-compact", "unrolled-sort")
@@ -91,10 +147,28 @@ def operands(n_docs: int, batch: int, device: torch.device):
     return e8, T.quantize_int8(q), eb, q.bfloat16(), e4, rows[:B_DOCS], q
 
 
-def ablate(n_docs: int, batches=(128, 256), *, reps: int, only=None) -> list[dict]:
+def plan(batch: int) -> dict[str, tuple[str, ...]]:
+    """The kernels timed at a batch, each with its variants (kernel B at
+    256 only)."""
+    c = C_FOLD + (C_CLUSTER if batch == 256 else ())
+    kernels = {
+        "A": (*STREAM, *NO_LOAD), "C2": c + (("paired",) if batch == 256 else ()), "C1": c,
+        "C2 1 part": ("full",),
+        "C2 4 parts": ("full",),
+        "D": STREAM, "E2": E_STREAM, "E1": E_STREAM, "E2 1 part": ("full",),
+    }
+    if batch == 256:
+        kernels.update({"B f32": STREAM, "B bf16": STREAM, "B bf16 stream": B_STREAM})
+    return kernels
+
+
+def ablate(
+    n_docs: int, batches=(128, 256), *, reps: int, only=None, variants=None
+) -> list[dict]:
     """Rows (kernel, batch, variant, ms median, ms best) per call, the
     variants timed in turns: ``reps`` rounds of CALLS launches each.
-    ``only``: the names of the kernels to time (default all)."""
+    ``only``: the names of the kernels to time, ``variants`` the variants
+    (default all of each kernel's)."""
     device = torch.device("cuda")
     e8, q8_all, eb, qb_all, e4, b_rows, qf_all = operands(n_docs, max(batches), device)
     b_bf16 = b_rows.bfloat16()
@@ -103,38 +177,61 @@ def ablate(n_docs: int, batches=(128, 256), *, reps: int, only=None) -> list[dic
     rows = []
     for batch in batches:
         q8, qb = q8_all[:batch].contiguous(), qb_all[:batch].contiguous()
-        kernels = {
-            "A": (lambda: T.i8_top2g_cells(q8, e8, group=group, sub=sub), STREAM),
-            "D": (lambda: T.fast_cells(qb, eb), STREAM),
-            "E2": (lambda: T.i4_cells(q8, e4, slots=2), tuple(VARIANTS)),
-            "E1": (lambda: T.i4_cells(q8, e4, slots=1), tuple(VARIANTS)),
-            "E2 1 part": (lambda: T.i4_cells(q8, e4, slots=2, max_parts=1), ("full",)),
+        qf = qf_all[:batch].contiguous()
+        calls = {
+            "A": lambda: T.i8_top2g_cells(q8, e8, group=group, sub=sub),
+            "C2": lambda: T.i8_turbo_cells(q8, e8, slots=2),
+            "C1": lambda: T.i8_turbo_cells(q8, e8, slots=1),
+            "C2 1 part": lambda: T.i8_turbo_cells(q8, e8, slots=2, max_parts=1),
+            "C2 4 parts": lambda: T.i8_turbo_cells(q8, e8, slots=2, max_parts=4),
+            "D": lambda: T.fast_cells(qb, eb),
+            "E2": lambda: T.i4_cells(q8, e4, slots=2),
+            "E1": lambda: T.i4_cells(q8, e4, slots=1),
+            "E2 1 part": lambda: T.i4_cells(q8, e4, slots=2, max_parts=1),
+            "B f32": lambda: T.fused_topk(b_rows, qf, common.C),
+            "B bf16": lambda: T.fused_topk(b_bf16, qb, common.C),
+            "B bf16 stream": lambda: T.fused_topk(b_bf16, qb, common.C, route="stream"),
         }
-        if batch == 256:
-            qf = qf_all[:batch].contiguous()
-            kernels["B f32"] = (lambda: T.fused_topk(b_rows, qf, common.C), STREAM)
-            kernels["B bf16"] = (lambda: T.fused_topk(b_bf16, qb, common.C), STREAM)
-            kernels["B bf16 stream"] = (
-                lambda: T.fused_topk(b_bf16, qb, common.C, route="stream"), B_STREAM
-            )
+        kernels = plan(batch)
         if only is not None:
             kernels = {name: kernels[name] for name in only if name in kernels}
-        for _, names in kernels.values():
+        if variants is not None:
+            kernels = {k: tuple(v for v in names if v in variants) for k, names in kernels.items()}
+        for names in kernels.values():
             for name in names:
                 _kernels.load_library(VARIANTS[name])  # build before timing
-        for kernel, (fn, names) in kernels.items():
+        for kernel, names in kernels.items():
+            exact = {}
+            if kernel.startswith("C"):  # the twin once, then each exact variant
+                slots = 1 if kernel == "C1" else 2
+                want = T.i8_turbo_cells_plain(q8, e8, slots=slots)
+                for name in set(names) & set(C_EXACT):
+                    with _kernels.extra_flags(VARIANTS[name]):
+                        exact[name] = bool(torch.equal(calls[kernel](), want))
+                del want
             samples = {name: [] for name in names}
             for _ in range(reps + 1):  # the first round warms up
                 for name in names:
                     with _kernels.extra_flags(VARIANTS[name]):
-                        samples[name].append(_time(fn, device))
+                        samples[name].append(_time(calls[kernel], device))
+            mhz = sm_clock_mhz()
             for name, ms in samples.items():
                 ms = ms[1:]
                 rows.append({
                     "kernel": kernel, "batch": batch, "variant": name,
                     "ms_median": statistics.median(ms), "ms_best": min(ms),
+                    "exact": exact.get(name), "sm_mhz": mhz,
                 })
     return rows
+
+
+def sm_clock_mhz() -> str:
+    """The card's SM clock now, as ``nvidia-smi`` reads it (MHz)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
 
 
 def _time(fn, device) -> float:
@@ -156,10 +253,13 @@ def main(argv=None) -> int:
     parser.add_argument("--reps", type=int, default=5)
     parser.add_argument(
         "--kernels", default=None,
-        help="comma-separated kernels to time (A, D, E2, E1, 'E2 1 part', 'B f32', "
-        "'B bf16', 'B bf16 stream'; default all)",
+        help="comma-separated kernels to time (A, C2, C1, 'C2 1 part', 'C2 4 parts', D, "
+        "E2, E1, 'E2 1 part', 'B f32', 'B bf16', 'B bf16 stream'; default all)",
     )
     parser.add_argument("--batches", default="128,256", help="comma-separated batch sizes")
+    parser.add_argument(
+        "--variants", default=None, help="comma-separated variants to run (default all)"
+    )
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("stream_ablation: needs a CUDA card", file=sys.stderr)
@@ -168,12 +268,16 @@ def main(argv=None) -> int:
     print(common.device_line(device))
     only = args.kernels.split(",") if args.kernels else None
     batches = tuple(int(x) for x in args.batches.split(","))
-    for row in ablate(args.n_docs, batches, reps=args.reps, only=only):
+    variants = args.variants.split(",") if args.variants else None
+    for row in ablate(args.n_docs, batches, reps=args.reps, only=only, variants=variants):
         n = min(args.n_docs, B_DOCS) if row["kernel"].startswith("B ") else args.n_docs
         print(
-            f"kernel {row['kernel']} B={row['batch']} {row['variant']:<8} "
+            f"kernel {row['kernel']} B={row['batch']} {row['variant']:<13} "
             f"{row['ms_median']:.4f} ms median {row['ms_best']:.4f} best per call "
-            f"(N={n}, D={common.DIM}; {args.reps} rounds of {CALLS} calls)"
+            f"(N={n}, D={common.DIM}; {args.reps} rounds of {CALLS} calls; SM clock "
+            f"{row['sm_mhz']} MHz after them)"
+            + {None: "", True: "; cells equal to the twin", False: "; CELLS DIFFER FROM THE TWIN"}[
+                row["exact"]]
         )
     return 0
 

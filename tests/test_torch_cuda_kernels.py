@@ -16,9 +16,9 @@ stream route; and its v1 control) agree to 2e-6 and its ids are equal
 except where two docs' scores differ by less than 1e-5 (the twin sums in
 another order; bf16 products are exact in float32, summed by the tensor
 cores), and duplicate rows come out lower id first, exactly. The
-redesigned kernels A, B (bf16: the stream route against the ring), D, E1 and E2
-(TMA + wgmma) are also held to their A/B controls (their ``mma.sync``
-versions) under the same rules. The hybrid paths at D = 100
+redesigned kernels A, B (bf16: the stream route against the ring), C1, C2,
+D, E1 and E2 (TMA + wgmma) are also held to their A/B controls (their
+``mma.sync`` versions) under the same rules. The hybrid paths at D = 100
 and 200 (feature axis zero-padded to 112 and 208) equal their plain-twin
 paths on dyadic rows, for every arm.
 """
@@ -318,11 +318,13 @@ def test_kernels_c_and_s_match_twins(cuda, data, dim):
     corpus = T.pad_corpus_rows(e8.to(cuda))
     q8 = q8.to(cuda)
     for slots, name in ((1, "turbo_i8"), (2, "turbo_i8_top2")):
-        before = T.launch_counts()[name]
+        T.reset_launch_counts()
         got = T.i8_turbo_cells(q8, corpus, slots=slots)
+        v1 = T.i8_turbo_cells_v1(q8, corpus, slots=slots)
         torch.cuda.synchronize()
-        assert T.launch_counts()[name] == before + 1
-        assert torch.equal(got, T.i8_turbo_cells_plain(q8, corpus, slots=slots))
+        assert {k: v for k, v in T.launch_counts().items() if v} == {name: 1, f"{name}_v1": 1}
+        want = T.i8_turbo_cells_plain(q8, corpus, slots=slots)
+        assert torch.equal(got, want) and torch.equal(v1, want)
         kv, ki = T.dense_topk_fast_i8(corpus, q8[:45], k=300, n_docs=n, slots=slots)
         pv, pi = T.dense_topk_fast_i8(corpus, q8[:45], k=300, n_docs=n, slots=slots, plain=True)
         assert torch.equal(ki, pi) and torch.equal(kv, pv)
@@ -331,6 +333,35 @@ def test_kernels_c_and_s_match_twins(cuda, data, dim):
     torch.cuda.synchronize()
     assert T.launch_counts()["dot_only"] == before + 1
     assert torch.equal(got, T.dot_only(corpus, q8[:45], plain=True))
+
+
+@pytest.mark.parametrize("dim", [112, 384, 1536, 4096])  # 1536: queries from shared memory; 4096 streamed
+@pytest.mark.parametrize("b", [45, 128, 256, 320])  # one tile; one; two (C1 paired); 3 tiles
+def test_kernel_c_new_matches_twin_at_any_width(cuda, b, dim):
+    """Kernels C1/C2 on the TMA + wgmma stream at any width, bit for bit,
+    with 1, 2 and 16 parts per super (C1's met by atomicMax, C2's by the
+    merge kernel). Up to D=384 the operands are uniform int8; wider rows
+    are quantised unit rows, so the twin's float32 sums stay exact
+    (|dot| <= 127**2 < 2**24)."""
+    n = T._TURBO_UNIT + 5_000  # 2 supers, the last one short
+    rng = np.random.default_rng(35)
+    if dim <= 384:
+        e8 = torch.from_numpy(rng.integers(-128, 128, (n, dim)).astype(np.int8))
+        q8 = torch.from_numpy(rng.integers(-128, 128, (b, dim)).astype(np.int8))
+    else:
+        emb = synthetic_embeddings(n, dim=dim, seed=36)
+        e8 = T.quantize_int8(torch.from_numpy(emb))
+        q8 = T.quantize_int8(torch.from_numpy(synthetic_query_embeddings(emb, b, seed=37)[0]))
+    corpus = T.pad_corpus_rows(e8.to(cuda))
+    q = T._pad_query_rows(q8.to(cuda), 32).contiguous()
+    for slots, name in ((1, "turbo_i8"), (2, "turbo_i8_top2")):
+        want = T.i8_turbo_cells_plain(q, corpus, slots=slots)
+        T.reset_launch_counts()
+        for max_parts in (1, 2, 16):
+            got = T.i8_turbo_cells(q, corpus, slots=slots, max_parts=max_parts)
+            assert torch.equal(got, want), (slots, max_parts)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in T.launch_counts().items() if v} == {name: 3}
 
 
 def test_kernel_s_wraps_like_int32(cuda):

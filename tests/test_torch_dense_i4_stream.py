@@ -7,7 +7,7 @@ TMA swizzle shows that the flat unpack of a swizzled packed box equals the
 swizzled unpacked tiles, also when a 2-block cluster lands a box as two
 multicast halves; a numpy model of the kernel's ``nibbles16()`` word op
 gives 16 times each signed nibble, exactly. The parts' twin
-(``i4_part_cells_plain``) merged by ``i4_merge_parts_plain`` over 1, 2 and
+(``i4_part_cells_plain``) merged by ``merge_part_cells_plain`` over 1, 2 and
 4 parts equals ``i4_cells_plain`` cell for cell, and through
 ``dense_topk_fast_i4`` equals the JAX kernels in interpret mode, on random
 and tie-heavy operands.
@@ -127,7 +127,7 @@ def _padded(e4, q8):
 def parts_plain(parts):
     def cells(queries, corpus, *, slots):
         split = T.i4_part_cells_plain(queries, corpus, slots=slots, parts=parts)
-        return T.i4_merge_parts_plain(split, slots=slots)
+        return T.merge_part_cells_plain(split, slots=slots)
 
     return cells
 
@@ -140,9 +140,9 @@ def test_parts_merged_equal_the_cells_twin(i4_operands, data, slots, parts):
     want = T.i4_cells_plain(q, packed, slots=slots)
     split = T.i4_part_cells_plain(q, packed, slots=slots, parts=parts)
     assert split.shape == (parts, *want.shape)
-    assert torch.equal(T.i4_merge_parts_plain(split, slots=slots), want)
+    assert torch.equal(T.merge_part_cells_plain(split, slots=slots), want)
     # the buffers merge alike in any order (distinct keys)
-    flipped = T.i4_merge_parts_plain(split.flip(0), slots=slots)
+    flipped = T.merge_part_cells_plain(split.flip(0), slots=slots)
     assert torch.equal(flipped, want)
 
 
@@ -177,7 +177,7 @@ def test_merge_of_disjoint_top2s_is_the_top2_of_the_union(trial):
     union = -np.sort(-keys.transpose(1, 0, 2).reshape(6, -1), axis=1)[:, :2]
     want = torch.from_numpy(np.concatenate([union[:, 0], union[:, 1]])[None])
     for order in itertools.permutations(range(n_parts)):
-        got = T.i4_merge_parts_plain(cells[list(order)][:, None], slots=2)
+        got = T.merge_part_cells_plain(cells[list(order)][:, None], slots=2)
         assert torch.equal(got, want)
 
 

@@ -268,7 +268,7 @@ NO_LAUNCHES = {
     "i8_top2g": 0, "i8_top2g_v1": 0, "i8_fold": 0, "fused_topk": 0, "fused_topk_v1": 0,
     "turbo_f32": 0, "turbo_f32_v1": 0, "turbo_i4": 0, "turbo_i4_top2": 0,
     "turbo_i4_v1": 0, "turbo_i4_top2_v1": 0, "turbo_i8": 0, "turbo_i8_top2": 0,
-    "dot_only": 0,
+    "turbo_i8_v1": 0, "turbo_i8_top2_v1": 0, "dot_only": 0,
 }
 
 
@@ -290,6 +290,7 @@ def test_wrappers_route_cpu_to_twins_without_counting():
         assert T.i4_cells(q, packed, slots=slots).shape == (32, 128 * slots)
         assert T.i4_cells_v1(q, packed, slots=slots).shape == (32, 128 * slots)
         assert T.i8_turbo_cells(q, corpus, slots=slots).shape == (32, 128 * slots)
+        assert T.i8_turbo_cells_v1(q, corpus, slots=slots).shape == (32, 128 * slots)
     assert T.dot_only_cells(q, corpus).shape == (32, 128)
     assert T.launch_counts() == NO_LAUNCHES
 
@@ -320,6 +321,8 @@ def test_wrappers_refuse_non_cuda_devices():
         T.i4_cells_v1(q, corpus[: T._TURBO_UNIT // 2], slots=2)
     with pytest.raises(ValueError, match="CUDA"):
         T.i8_turbo_cells(q, corpus, slots=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        T.i8_turbo_cells_v1(q, corpus, slots=2)
     with pytest.raises(ValueError, match="CUDA"):
         T.dot_only_cells(q, corpus)
     assert T.launch_counts() == NO_LAUNCHES

@@ -135,7 +135,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(_kernels.KernelBuildError, match="nvcc"):
         _kernels.build()
     for name in ("oi_i8_top2g", "oi_turbo_f32", "oi_turbo_i4", "oi_turbo_i4_tma",
-                 "oi_turbo_i8", "oi_dot_only"):
+                 "oi_turbo_i8", "oi_turbo_i8_tma", "oi_dot_only"):
         with pytest.raises(_kernels.KernelBuildError, match="nvcc"):
             _kernels.launch(name)
     assert not (tmp_path / "build").exists()
@@ -150,13 +150,13 @@ def test_library_name_follows_the_sources():
     assert {p.name for p in _kernels.sources()} == {
         "dot_only.cu", "fused_topk.cu", "fused_topk_v2.cu", "i8_top2g.cu",
         "i8_top2g_tma.cu", "turbo_bf16_tma.cu", "turbo_f32.cu", "turbo_i4.cu",
-        "turbo_i4_tma.cu", "turbo_i8.cu",
+        "turbo_i4_tma.cu", "turbo_i8.cu", "turbo_i8_tma.cu",
     }
     assert set(_kernels._SIGNATURES) == {
         "oi_dot_only", "oi_fused_topk", "oi_fused_topk_v2", "oi_fused_topk_v2_tma",
         "oi_i8_top2g", "oi_i8_top2g_tma",
         "oi_i8_fold", "oi_turbo_bf16_tma", "oi_turbo_f32", "oi_turbo_i4",
-        "oi_turbo_i4_tma", "oi_turbo_i8",
+        "oi_turbo_i4_tma", "oi_turbo_i8", "oi_turbo_i8_tma",
     }
     assert {p.name for p in _kernels.headers()} == {"tma_stream.cuh", "turbo_common.cuh"}
 

@@ -38,8 +38,10 @@ def test_kernel_decomp_core(operands):
     _, corpus, q8s, _, _ = operands
     rows = kernel_decomp.decompose(corpus, q8s, N, reps=1)
     _check_rows(rows, [
-        "dot-only (MXU+stream floor)", "fold-only (pack+2max, no topk)",
-        "turbo slots=1 (+select+dec)", "turbo slots=2 (+select+dec)",
+        "dot-only (MXU+stream floor) [mma.sync loop]",
+        "fold-only (pack+2max, no topk) [TMA+wgmma stream]",
+        "turbo slots=1 (+select+dec) [TMA+wgmma stream]",
+        "turbo slots=2 (+select+dec) [TMA+wgmma stream]",
     ])
 
 
@@ -144,9 +146,64 @@ def test_measurement_builds_are_libraries_of_their_own():
     from openintel_tpu_torch.tools import stream_ablation
 
     names = {_kernels.library_path(f) for f in stream_ablation.VARIANTS.values()}
-    assert len(names) == len(stream_ablation.VARIANTS) == 9
+    assert len(names) == len(stream_ablation.VARIANTS) == 25
     assert _kernels.library_path() in names
     flags = stream_ablation.VARIANTS["stream"]
     with _kernels.extra_flags(flags):
         assert _kernels._flags == flags
     assert _kernels._flags == ()
+
+
+@pytest.mark.parametrize("batch", [128, 256])
+def test_stream_ablation_plans_kernels_c_and_their_fold_variants(batch):
+    """C2 and C1 run the stream variants and the three ways of hiding the
+    fold, the cluster ones at B=256 only (B=128 is one query tile, no
+    cluster); every variant has its build flags."""
+    from openintel_tpu_torch.tools import stream_ablation as S
+
+    plan = S.plan(batch)
+    for kernel in ("C2", "C1"):
+        names = plan[kernel]
+        assert names[:3] == ("full", "no-fold", "stream")
+        assert {"two-in-flight", "two-in-flight no-fold", "pair-fold", "q-smem"} <= set(names)
+        assert {"no-load", "no-load no-fold", "fold alone", "no-product"} <= set(names)
+        assert ("no-cluster" in names) == (batch == 256)
+        assert ("paired" in names) == (batch == 256 and kernel == "C2")
+    assert plan["C2 1 part"] == plan["C2 4 parts"] == ("full",)
+    assert ("B bf16 stream" in plan) == (batch == 256)
+    for names in plan.values():
+        assert set(names) <= set(S.VARIANTS)
+    assert S.VARIANTS["two-in-flight"] == ("-DOI_C_FOLD=1",)
+    assert S.VARIANTS["pair-fold"] == ("-DOI_C_FOLD=2",)
+    assert S.VARIANTS["no-load"] == ("-DOI_STREAM_ABLATE=5",)
+    assert S.VARIANTS["no-cluster no-fold"] == ("-DOI_STREAM_NO_CLUSTER=1", "-DOI_STREAM_ABLATE=1")
+
+
+def test_ptxas_report_reads_the_compiler_log_and_the_sass():
+    """The build comparison's parsers on a log and SASS lines in the
+    compiler's formats (the build itself needs nvcc)."""
+    from openintel_tpu_torch.tools import ptxas_report
+
+    log = """ptxas info    : Compiling entry function '_Z6kernelPi' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelPi
+    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 488 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z4fillPi' for 'sm_90a'
+ptxas info    : Function properties for _Z4fillPi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 10 registers, 372 bytes cmem[0]
+"""
+    got = ptxas_report.ptxas_entries(log)
+    assert got == {
+        "_Z6kernelPi": {"stack": 8, "spill_st": 4, "spill_ld": 12, "regs": 168},
+        "_Z4fillPi": {"stack": 0, "spill_st": 0, "spill_ld": 0, "regs": 10},
+    }
+    lines = [
+        "        /*0070*/                   IMNMX R5, R4, R5, !PT ;   /* 0x0000000504057248 */",
+        "        /*0080*/               @!P0 BRA 0x190 ;              /* 0x000000000000094c */",
+        "        /*0090*/                   VIMNMX3 R2, R3, R4, R5, !PT ; /* 0x0000000403027248 */",
+    ]
+    instrs = [ptxas_report._INSTR.search(line).group(1) for line in lines]
+    name = "_ZN44_GLOBAL__N__62b4206e_11_turbo_i8_cu_83787ca615turbo_i8_kernelILi7ELi1ELi1EEEvPKaS2_Piii"
+    assert ptxas_report.kernel_name(name) == "_ZN44_ANON_turbo_i815turbo_i8_kernelILi7ELi1ELi1EEEvPKaS2_Piii"
+    assert [ptxas_report.opcode(i) for i in instrs] == ["IMNMX", "BRA", "VIMNMX3"]
