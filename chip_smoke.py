@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's hybrid search on one NVIDIA card and check it.
 
-    python3 chip_smoke.py            # all phases (one card, ~3 min)
+    python3 chip_smoke.py            # all phases (one card, ~4 min)
     python3 chip_smoke.py --quick    # build + kernel-vs-twin checks only
     python3 chip_smoke.py --profile  # all phases, and a profile of each path
 
 Phases, one line of output each (any failed check raises, exit code != 0),
 run in the order 1, 2, 3, 6, 7, 10 (the kernel checks; ``--quick`` stops
-there), then 4, 5, 12, 13, 8, 9, 11 (the paths):
+there), then 4, 5, 12, 13, 8, 9, 11, 14, 15 (the paths):
 
 1. environment: the card, torch and CUDA versions, the kernel build (nvcc,
    ``openintel_tpu_torch/csrc``) and the C++ query planner;
@@ -42,7 +42,8 @@ there), then 4, 5, 12, 13, 8, 9, 11 (the paths):
    at c-bf16 the stream route against the served ring in 5 alternating
    rounds;
 13. every arm (int8, fast, int4, pallas) at D=100 on the card, equal to its
-   plain-twin path (the feature axis zero-padded at load);
+   plain-twin path (the feature axis zero-padded at load), and ``dot_only``
+   (kernel S, the features padded per call) equal to its twin;
 6. kernel D (bf16: ``csrc/turbo_bf16_tma.cu``, TMA + wgmma; f32:
    ``csrc/turbo_f32.cu``) and its bf16 A/B control (``turbo_f32.cu``)
    against their plain twin, f32 and bf16:
@@ -64,20 +65,37 @@ there), then 4, 5, 12, 13, 8, 9, 11 (the paths):
    time; the public op ``dense_topk_fast_i4(slots=1)`` (kernel E1) on one
    sub-batch; E2 and E1 alone against their twin and against v1 (5
    alternating rounds), with E2's stream and merge kernels by the profiler;
-10. kernels C1/C2 (``csrc/turbo_i8_tma.cu``, TMA + wgmma) and their A/B
-   control, the ``mma.sync`` kernel of ``csrc/turbo_i8.cu``, and S
-   (``csrc/dot_only.cu``) against their plain twins: cells,
-   ``dense_topk_fast_i8`` (slots 1 and 2, k=32 and beyond capacity) and the
-   wrapping lane sums bit-identical, on random, tie-heavy and saturated
-   operands; the new kernels also at B=256 (C1 in 2-block clusters), C2
-   with 1 and 16 parts per super;
+10. kernels C1/C2 (``csrc/turbo_i8_tma.cu``, TMA + wgmma) and S
+   (``csrc/dot_only_tma.cu``, the same stream) and their A/B controls, the
+   ``mma.sync`` kernels of ``csrc/turbo_i8.cu`` and ``csrc/dot_only.cu``,
+   against their plain twins: cells, ``dense_topk_fast_i8`` (slots 1 and 2,
+   k=32 and beyond capacity) and the wrapping lane sums bit-identical, on
+   random, tie-heavy and saturated operands; the new C kernels also at
+   B=256 (C1 in 2-block clusters), C2 with 1 and 16 parts per super; S also
+   at B 45/128/256/320 (paired and unpaired at 256) and D 112/384/1,536;
+   and a probe of whether the tensor cores' s32 adds wrap (S forced to
+   runs whose sums pass int32);
 11. the candidate-pass measurement path at full width, on phase 4's corpus
    and queries: the cores of the three tools in
    ``openintel_tpu_torch/tools`` (kernel S, C1, C2 and A per sub-batch),
    ``dense_topk_fast_i8`` against its plain path, recall@10 after rescore
-   of the per-super pass against the grouped kernel A's, C2 and C1 alone
-   against their twin and against v1 (5 alternating rounds), and S alone
-   against its twin.
+   of the per-super pass against the grouped kernel A's, C2, C1 and S alone
+   against their twin and against v1 (5 alternating rounds), S also paired
+   against unpaired, and beside it the two-call yardstick (``torch._int_mm``
+   then the per-lane sum);
+14. pipelined serving at full width: ``PipelinedSearcher(depth=2)``
+   (``openintel_tpu_torch/serving.py``) over phase 4's corpus and int8 arm,
+   8 waves of 4 x 256 queries by phase 4's generator, against the
+   sequential loop in turns: every wave bit-identical to
+   ``run_prepared(prepare(wave))``, kernel A once per sub-batch; queries a
+   second of both, ``prepare`` and the step alone per wave, and each
+   stage's host time inside the pipeline (the two threads' contention);
+15. coalesced serving: 8 concurrent callers of 64 query strings each for
+   ~5 s through ``BatchCoalescer(retr.search, max_batch=256,
+   max_wait_ms=2.0)``: each caller's first and last result equal to a
+   direct search of its strings (near-tie rule), ``batches_run``,
+   ``queries_run``, queries a second, the callers' p50 and p99 latency and
+   the waves' sizes and search times.
 
 Each path runs in its own counted window: the kernel launch counts are
 zeroed just before it and read just after, and each kernel of the path
@@ -85,10 +103,11 @@ must have launched. The line before the last is a JSON object with each
 kernel's launches (from its window), error and time beside its twin's and
 its bound (the larger of its bytes over the memory rate and its operations
 over the peak rate of their type), and for the redesigned kernels A, B,
-C1, C2, D, E1 and E2 the v1 control's median from the same run
-(``prev_ms``); the v1 controls of kernels B, C1 and C2 have records of
+C1, C2, D, E1, E2 and S the v1 control's median from the same run
+(``prev_ms``); the v1 controls of kernels B, C1, C2 and S have records of
 their own (``fused_topk_v1``, ``turbo_i8_v1``, ``turbo_i8_top2_v1``,
-launched only beside the paths, so 0 launches in the windows); the last line
+``dot_only_v1``, launched only beside the paths, so 0 launches in the
+windows); the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits non-zero and
 prints no result.
 
@@ -107,6 +126,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -125,6 +145,7 @@ from openintel_tpu_torch.ops import _kernels
 from openintel_tpu_torch.ops import dense_topk as T
 from openintel_tpu_torch.ops.bm25 import bm25_topk_device, encode_query
 from openintel_tpu_torch.ops.dense import dense_topk_xla, require_true_f32
+from openintel_tpu_torch.serving import BatchCoalescer, PipelinedSearcher
 from openintel_tpu_torch.tools import common, grouped_ab, kernel_decomp, topk_reduce_ab
 
 N_DOCS = 1_250_000  # bench.py's per-chip shard of the 10M-doc corpus
@@ -151,6 +172,8 @@ HBM_BYTES_PER_S = 3.35e12
 PRODUCT_NOTE = "product alone, not the same function:"
 PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 AB_ROUNDS, AB_REPS = 5, 10  # redesigned kernel vs its control: rounds x launches
+WAVES = 8  # phase 14: waves of N_BATCHES sub-batches of BATCH queries
+CALLERS, CALLER_QUERIES, COALESCE_S = 8, 64, 5.0  # phase 15: callers, queries a call, seconds
 
 
 def log(msg: str) -> None:
@@ -244,12 +267,14 @@ def ab_rounds(new, old, rounds: int = AB_ROUNDS, reps: int = AB_REPS):
     return new_ms, old_ms
 
 
-def ab_line(new_ms, old_ms) -> str:
+def ab_line(new_ms, old_ms, names=("new", "v1")) -> str:
+    a, b = names
     rounds = ", ".join(f"{n:.4f}/{o:.4f}" for n, o in zip(new_ms, old_ms))
     wins = sum(n < o for n, o in zip(new_ms, old_ms))
+    lead = "median" if a == "new" else f"{a} median"
     return (
-        f"median {statistics.median(new_ms):.4f} ms vs v1 {statistics.median(old_ms):.4f} ms "
-        f"(rounds new/v1: {rounds}; new faster in {wins} of {len(new_ms)})"
+        f"{lead} {statistics.median(new_ms):.4f} ms vs {b} {statistics.median(old_ms):.4f} ms "
+        f"(rounds {a}/{b}: {rounds}; {a} faster in {wins} of {len(new_ms)})"
     )
 
 
@@ -618,11 +643,65 @@ def phase_kernel_c_s() -> None:
     torch.cuda.synchronize()
     if not wrapped:
         raise AssertionError("kernel S: no lane sum wrapped; the wrap case is not covered")
+    s_cases, s_wrapped = check_kernel_s(rng)
     log(
         f"phase10 kernels C1/C2 and S: {cases} cases (slots 1/2, random, tie-heavy "
         f"and saturated, N={n}, B={b} and 256, D={DIM}) cells of the TMA + wgmma "
         f"kernels and of their v1 control, dense_topk_fast_i8 (k {C_ARM}, "
-        f"capacity+7) and lane sums ({wrapped} wrapped) bit-identical to the twins"
+        f"capacity+7) and lane sums ({wrapped} wrapped) bit-identical to the twins; "
+        f"kernel S on the stream (paired and unpaired) and v1: {s_cases} cases (random, "
+        f"tie-heavy, saturated; B 45/128/256/320; D 112/384/1536; {s_wrapped} sums "
+        f"wrapped) bit-identical; {wrap_probe()}"
+    )
+
+
+def check_kernel_s(rng) -> tuple[int, int]:
+    """Kernel S on the stream (at B=256 paired and unpaired) and its v1
+    control against the twin over two supers (the last short): random,
+    tie-heavy and all -128 operands (the largest dots: the lane sums wrap at
+    D=1536) at every query tiling and three widths (queries in registers,
+    and from shared memory at 1,536). Returns (cases, sums that wrapped)."""
+    dev = torch.device("cuda")
+    n = T._TURBO_UNIT + 5_000
+    cases = wrapped = 0
+    for dim in (112, 384, 1536):
+        operands = {
+            "random": rng.integers(-128, 128, (n + 320, dim)).astype(np.int8),
+            "tie-heavy": rng.integers(-1, 2, (n + 320, dim)).astype(np.int8),
+            "saturated": np.full((n + 320, dim), -128, np.int8),
+        }
+        for name, rows in operands.items():
+            crp = T.pad_corpus_rows(torch.from_numpy(rows[:n]).to(dev))
+            for b in (45, 128, 256, 320):
+                q = T._pad_query_rows(torch.from_numpy(rows[n : n + b]).to(dev), 32).contiguous()
+                want = T.dot_only_plain(q, crp)
+                for paired in (True, False) if b == 256 else (True,):
+                    if not torch.equal(T.dot_only_cells(q, crp, paired=paired), want):
+                        raise AssertionError(
+                            f"kernel S differs ({name}, B={b}, D={dim}, paired={paired})"
+                        )
+                if not torch.equal(T.dot_only_cells_v1(q, crp), want):
+                    raise AssertionError(f"kernel S v1 differs ({name}, B={b}, D={dim})")
+                exact = (q.double() @ crp.double().T).view(q.shape[0], -1, 128).sum(dim=1)
+                wrapped += int((exact != want.double()).sum())
+                cases += 1
+    return cases, wrapped
+
+
+def wrap_probe() -> str:
+    """Whether the tensor cores' s32 adds wrap: kernel S forced to runs of
+    128 sub-blocks at D=4096 over all -128 operands, so that each
+    accumulator set's run sum is 2**32 (the served runs never leave int32,
+    ``dense_topk.dot_only_run``). A measurement, not a check of S."""
+    dev = torch.device("cuda")
+    crp = torch.full((T._TURBO_UNIT, 4096), -128, dtype=torch.int8, device=dev)
+    q = torch.full((32, 4096), -128, dtype=torch.int8, device=dev)
+    _, overflows = T.dot_only_runs_plain(q, crp, parts=1, run_cap=128)
+    forced = T.dot_only_cells(q, crp, run_cap=128)
+    same = bool(torch.equal(forced, T.dot_only_plain(q, crp)))
+    return (
+        f"s32 wrap probe (runs of 128 at D=4096, {overflows} set runs past int32): "
+        f"{'equal to the twin: the adds wrap' if same else 'DIFFERS from the twin: the adds do not wrap'}"
     )
 
 
@@ -1096,9 +1175,17 @@ def phase_misfit_width(card) -> None:
         if not (np.array_equal(res.ids, plain.ids) and np.array_equal(res.scores, plain.scores)):
             raise AssertionError(f"D={dim}: the {kernel} path differs from its plain path")
         assert retr.dense._emb_device.shape[1] == T.padded_dim(dim)
+    # kernel S through its op: the features padded per call
+    e8 = T.quantize_int8(torch.from_numpy(emb)).cuda()
+    q8 = T.quantize_int8(torch.from_numpy(q)).cuda()
+    got, counts = counted(lambda: T.dot_only(e8, q8))
+    expect_launches(counts, dot_only=1)
+    if not torch.equal(got, T.dot_only(e8, q8, plain=True)):
+        raise AssertionError(f"D={dim}: kernel S differs from its twin")
     log(
         f"phase13 misfit width: D={dim} (padded to {T.padded_dim(dim)}), N={n}, 70 "
-        f"queries: the int8, fast, int4 and pallas paths equal their plain paths [{card}]"
+        f"queries: the int8, fast, int4 and pallas paths equal their plain paths, "
+        f"and dot_only (kernel S) its twin [{card}]"
     )
 
 
@@ -1357,22 +1444,224 @@ def phase_measurement(corpus, card) -> list:
             plain_ms, limit,
         ))
     got, want = T.dot_only_cells(q8, i8), T.dot_only_plain(q8, i8)
+    v1 = T.dot_only_cells_v1(q8, i8)
     err = int((got.long() - want.long()).abs().max())
-    if err:
-        raise AssertionError(f"kernel S differs from its twin by {err}")
-    ms = cuda_ms(lambda: T.dot_only_cells(q8, i8), 10)
+    v1_err = int((v1.long() - want.long()).abs().max())
+    if err or v1_err:
+        raise AssertionError(f"kernel S (or v1) differs from its twin by {max(err, v1_err)}")
+
+    def two_calls():  # the product, then the per-lane sum, wrapped
+        return T._wrap_int32(torch._int_mm(q8, i8.t()).view(BATCH, -1, 128).sum(dim=1))
+
+    if not torch.equal(two_calls(), want):
+        raise AssertionError("the two-call yardstick differs from kernel S's twin")
+    new_ms, old_ms = ab_rounds(lambda: T.dot_only_cells(q8, i8), lambda: T.dot_only_cells_v1(q8, i8))
+    pair_ms, solo_ms = ab_rounds(
+        lambda: T.dot_only_cells(q8, i8, paired=True),
+        lambda: T.dot_only_cells(q8, i8, paired=False),
+    )
+    two_ms = statistics.median(cuda_ms(two_calls, AB_REPS) for _ in range(AB_ROUNDS))
+    ms, v1_ms = statistics.median(new_ms), statistics.median(old_ms)
     plain_ms = cuda_ms(lambda: T.dot_only_plain(q8, i8), 3)
     limit = bound((q8, i8), (got,), product_ops(q8, i8), "int8")
     log(
-        f"kernel S at B={BATCH}, N={N_DOCS}, D={DIM}: {ms:.3f} ms vs twin "
-        f"{plain_ms:.3f} ms, bound {limit['bound_ms']:.4f} ms "
-        f"({limit['bound_by']}) [{card}]"
+        f"kernel S at B={BATCH}, N={N_DOCS}, D={DIM}: {ab_line(new_ms, old_ms)}; "
+        f"{ab_line(pair_ms, solo_ms, ('paired', 'unpaired'))}; served "
+        f"{'paired' if T._S_PAIRED else 'unpaired'}; twin {plain_ms:.3f} ms; two calls, "
+        f"not one library call: torch._int_mm then the per-lane sum {two_ms:.4f} ms; "
+        f"bound {limit['bound_ms']:.4f} ms ({limit['bound_by']}), share "
+        f"{limit['bound_ms'] / ms:.3f} (v1 {limit['bound_ms'] / v1_ms:.3f}) [{card}]"
     )
+    replaces = "scripts/bench_kernel_decomp.py:99"
     out.append(kernel_entry(
-        "dot_only", "dot_only.cu", "scripts/bench_kernel_decomp.py:99", counts["dot_only"],
-        err, ms, plain_ms, limit,
+        "dot_only", "dot_only_tma.cu", replaces, counts["dot_only"], err, ms, plain_ms, limit,
+        prev_ms=v1_ms, paired_ms=statistics.median(pair_ms),
+        unpaired_ms=statistics.median(solo_ms), two_call_ms=two_ms,
+    ))
+    out.append(kernel_entry(
+        "dot_only_v1", "dot_only.cu", replaces, counts["dot_only_v1"], v1_err, v1_ms, plain_ms,
+        limit,
     ))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 14, 15: serving (openintel_tpu_torch.serving)
+# ---------------------------------------------------------------------------
+
+
+def term_ranks(rng, n):
+    """Phase 4's query terms: 4 ranks a query, log-uniform over the vocabulary."""
+    return np.exp(rng.uniform(np.log(50), np.log(VOCAB - 1), size=(n, 4))).astype(np.int64)
+
+
+def wave(emb, rng, n):
+    """A wave by phase 4's generator: term ids and embeddings near random docs."""
+    term_ids = [list(row + 1) for row in term_ranks(rng, n)]
+    targets = rng.integers(0, N_DOCS, size=n)
+    q = emb[targets] + 0.6 * rng.standard_normal((n, DIM)).astype(np.float32)
+    q /= np.maximum(np.linalg.norm(q, axis=1, keepdims=True), 1e-12)
+    return term_ids, q
+
+
+def ms_median(seconds) -> float:
+    return statistics.median(seconds) * 1e3
+
+
+def phase_pipelined(corpus, card) -> HybridRetriever:
+    """Phase 14: ``PipelinedSearcher(depth=2)`` over phase 4's retriever
+    (the int8 arm) against the sequential loop, on WAVES waves of
+    N_BATCHES x BATCH queries, in turns (sequential, pipelined, pipelined,
+    sequential). Returns the retriever for phase 15."""
+    index, dense, _, _, emb = corpus
+    retr = HybridRetriever(index, dense, device="cuda", device_batch=BATCH)
+    if retr.kernel != "int8":
+        raise AssertionError(f"auto-select gave {retr.kernel}, not int8")
+    rng = np.random.default_rng(21)
+    waves = [wave(emb, rng, N_BATCHES * BATCH) for _ in range(WAVES)]
+    n_q = WAVES * N_BATCHES * BATCH
+    kw = {"k": K, "candidates_per_arm": C_ARM}
+    retr.run_prepared(retr.prepare(*wave(emb, rng, N_BATCHES * BATCH), **kw))  # warm
+
+    def sequential():
+        """Each stage to its end in turn: prepare (staging synced), the
+        step's dispatch, the wait for its result."""
+        stages = {"prepare": [], "dispatch": [], "step": []}
+        out = []
+        t0 = time.perf_counter()
+        for w in waves:
+            t = time.perf_counter()
+            prep = retr.prepare(*w, **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            copy = retr.copy_back(retr.run_prepared_device(prep))
+            t2 = time.perf_counter()
+            out.append(retr.finalize_prepared(prep, copy))
+            stages["prepare"].append(t1 - t)
+            stages["dispatch"].append(t2 - t1)
+            stages["step"].append(time.perf_counter() - t1)
+        return out, time.perf_counter() - t0, stages
+
+    pipe = PipelinedSearcher(retr, depth=2)
+
+    def pipelined():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = list(pipe.run_prepared_stream(iter(waves), **kw))
+        return out, time.perf_counter() - t0, {k: list(v) for k, v in pipe.stage_seconds.items()}
+
+    want, seq1, alone = sequential()
+    (got, pipe1, inside), counts = counted(pipelined)
+    expect_launches(counts, i8_top2g=WAVES * N_BATCHES)
+    _, pipe2, inside2 = pipelined()
+    _, seq2, alone2 = sequential()
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not (np.array_equal(g.ids, w.ids) and np.array_equal(g.scores, w.scores)):
+            raise AssertionError(f"pipelined wave {i} differs from run_prepared(prepare(wave))")
+    shaped = all(g.ids.shape == (N_BATCHES * BATCH, K) for g in got)
+    if not shaped or not all(np.isfinite(g.scores).all() for g in got):
+        raise AssertionError("pipelined results of the wrong shape or not finite")
+    seq_qps = n_q / statistics.median([seq1, seq2])
+    pipe_qps = n_q / statistics.median([pipe1, pipe2])
+    both = {k: alone[k] + alone2[k] for k in alone}
+    both_in = {k: inside[k] + inside2[k] for k in inside}
+    log(
+        f"phase14 pipelined serving at N={N_DOCS}, D={DIM} (int8 arm), {WAVES} waves of "
+        f"{N_BATCHES} x {BATCH} queries, depth 2: sequential {seq_qps:.0f} q/s "
+        f"({seq1:.3f}/{seq2:.3f} s), pipelined {pipe_qps:.0f} q/s ({pipe1:.3f}/{pipe2:.3f} "
+        f"s), ratio {pipe_qps / seq_qps:.3f}; per wave alone: prepare "
+        f"{ms_median(both['prepare']):.1f} ms, step {ms_median(both['step']):.1f} ms "
+        f"(its dispatch {ms_median(both['dispatch']):.1f} ms); in the pipeline: prepare "
+        f"{ms_median(both_in['prepare']):.1f} ms, dispatch "
+        f"{ms_median(both_in['dispatch']):.1f} ms, finalize {ms_median(both_in['finalize']):.1f} "
+        f"ms (host clock, medians of {2 * WAVES}); every wave bit-identical to "
+        f"run_prepared(prepare(wave)), kernel A launches {counts['i8_top2g']} [{card}]"
+    )
+    return retr
+
+
+def phase_coalesced(retr, card) -> None:
+    """Phase 15: CALLERS concurrent callers of CALLER_QUERIES query strings
+    each, for COALESCE_S seconds, through ``BatchCoalescer(retr.search,
+    max_batch=BATCH, max_wait_ms=2.0)``. Each caller's first and last
+    result is held to a direct ``retr.search`` of its strings at its
+    wave's sub-batch width (the int8 step width, 8192 at 128 queries and
+    more, is part of the result; a query's result does not depend on the
+    other queries of its sub-batch), under the near-tie rule."""
+    waves = []  # (queries in the wave, seconds in search, waves in flight at its start)
+    width = {}  # id of a query string -> its wave's size
+    lock = threading.Lock()
+    running = [0]
+
+    def search_fn(queries, k):
+        with lock:
+            running[0] += 1
+            overlap = running[0]
+        t = time.perf_counter()
+        res = retr.search(queries, k=k, candidates_per_arm=C_ARM)
+        with lock:
+            running[0] -= 1
+            waves.append((len(queries), time.perf_counter() - t, overlap))
+            width.update((id(q), len(queries)) for q in queries)
+        return res
+
+    co = BatchCoalescer(search_fn, max_batch=BATCH, max_wait_ms=2.0)
+    retr.search(["t1 t2"] * BATCH, k=K, candidates_per_arm=C_ARM)  # warm
+    calls = [[] for _ in range(CALLERS)]  # (strings, result, seconds)
+    errors = []
+    start = time.perf_counter()
+
+    def caller(c):
+        rng = np.random.default_rng(200 + c)
+        try:
+            while time.perf_counter() - start < COALESCE_S:
+                strings = [" ".join(f"t{r}" for r in row) for row in term_ranks(rng, CALLER_QUERIES)]
+                t = time.perf_counter()
+                res = co.search(strings, k=K)
+                calls[c].append((strings, res, time.perf_counter() - t))
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=caller, args=(c,)) for c in range(CALLERS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    elapsed = time.perf_counter() - start
+    if errors:
+        raise errors[0]
+    n_calls = sum(len(c) for c in calls)
+    if co.queries_run != n_calls * CALLER_QUERIES or co.oldest_inflight_s() is not None:
+        raise AssertionError(f"queries_run {co.queries_run} != {n_calls} calls x {CALLER_QUERIES}")
+    swaps = 0
+    for c in calls:
+        for strings, res, _ in (c[0], c[-1]):
+            w = width[id(strings[0])]
+            ref = retr.search(strings + [""] * (w - len(strings)), k=K, candidates_per_arm=C_ARM)
+            swaps += near_tie_check(
+                res.scores, res.ids, ref.scores[: len(strings)], ref.ids[: len(strings)], atol=0.0
+            )
+    lat = np.array([t for c in calls for _, _, t in c]) * 1e3
+    sizes = np.array([n for n, _, _ in waves])
+    wave_ms = np.array([t for _, t, _ in waves]) * 1e3
+    alone = np.array([o == 1 for _, _, o in waves])
+    full = sizes == BATCH
+
+    def pcts(ms):
+        return f"p50 {np.percentile(ms, 50):.1f} / p99 {np.percentile(ms, 99):.1f} ms" if ms.size else "none"
+
+    log(
+        f"phase15 coalesced serving: {CALLERS} callers x {CALLER_QUERIES} queries for "
+        f"{elapsed:.2f} s: {n_calls} calls, batches_run {co.batches_run}, queries_run "
+        f"{co.queries_run}, {co.queries_run / elapsed:.0f} q/s; caller latency p50 "
+        f"{np.percentile(lat, 50):.1f} ms, p99 {np.percentile(lat, 99):.1f} ms, max "
+        f"{lat.max():.1f} ms; waves: {int(full.sum())} full of {BATCH}, "
+        f"{int((~full).sum())} flushed by the timer (mean {sizes[~full].mean() if (~full).any() else 0:.0f} "
+        f"queries); search per wave {pcts(wave_ms)}, started alone ({int(alone.sum())}) "
+        f"{pcts(wave_ms[alone])}, beside another wave ({int((~alone).sum())}) "
+        f"{pcts(wave_ms[~alone])}; each caller's first and last result equal to a "
+        f"direct search of its strings ({swaps} near-tie swaps) [{card}]"
+    )
 
 
 def run(quick: bool, profile: bool) -> None:
@@ -1384,7 +1673,7 @@ def run(quick: bool, profile: bool) -> None:
     phase_kernel_e()
     phase_kernel_c_s()
     if quick:
-        log("quick run: the paths (phases 4, 5, 8, 9, 11) skipped")
+        log("quick run: the paths (phases 4, 5, 12, 13, 8, 9, 11, 14, 15) skipped")
         return
 
     corpus = build_corpus()
@@ -1403,6 +1692,10 @@ def run(quick: bool, profile: bool) -> None:
     free_device()
     kernels += phase_measurement(corpus, card)
     free_device()
+    retr = phase_pipelined(corpus, card)
+    phase_coalesced(retr, card)
+    del retr
+    free_device()
 
     leaked = sorted(
         m for m in sys.modules
@@ -1413,6 +1706,7 @@ def run(quick: bool, profile: bool) -> None:
     order = [
         "i8_top2g", "fused_topk", "fused_topk_v1", "turbo_f32", "turbo_i4", "turbo_i4_top2",
         "turbo_i8", "turbo_i8_top2", "turbo_i8_v1", "turbo_i8_top2_v1", "dot_only",
+        "dot_only_v1",
     ]
     kernels.sort(key=lambda e: order.index(e["name"]))
     log(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
 // The Hopper corpus stream of kernels A (i8_top2g_tma.cu), B on bf16 rows
 // (fused_topk_v2.cu), C1/C2 (turbo_i8_tma.cu), D on bf16 rows
-// (turbo_bf16_tma.cu) and E1/E2 (turbo_i4_tma.cu): TMA loads into a ring
-// of shared-memory tiles, consumed by wgmma.
+// (turbo_bf16_tma.cu), E1/E2 (turbo_i4_tma.cu) and S (dot_only_tma.cu):
+// TMA loads into a ring of shared-memory tiles, consumed by wgmma.
 //
 // A block holds 128 queries (two consumer warpgroups of 64) and walks work
 // units of (super, lane half, part of the super's 128 sub-blocks). A doc
@@ -436,12 +436,20 @@ __device__ __forceinline__ void produce(const Geometry& g, const CUtensorMap* tq
 // products of p - 1 and p; PAIRS (FLIGHT 1) folds sub-blocks two at a
 // time, fold(acc_p, acc_p+1, cell, s, half, p), under the next products.
 // The defaults (two sets, FLIGHT 1, single folds) are the shipped loop.
+// ACCUM (kernel S, FLIGHT 1): a set is not cleared at each sub-block but
+// accumulates in place over runs of acc_run sub-blocks of a part (acc_run
+// a power of two >= 2, dividing the part): sub-block pos is issued with
+// scale_d = 1 unless pos starts its set's run (pos % acc_run < 2), and
+// fold sees the sums so far, whole at the run's last two sub-blocks. With
+// acc_cross (acc_run the whole part) the runs go on across the block's
+// units: only its first unit starts them.
 template <int QREGS, typename Mma, int FLIGHT = 1, bool PAIRS = false,
-          typename Begin, typename Fold, typename Finish>
+          bool ACCUM = false, typename Begin, typename Fold, typename Finish>
 __device__ __forceinline__ void consume(const Geometry& g, const uint8_t* q_s,
                                         uint64_t* qbar, const Ring& r,
                                         int release_blocks, int qt, int cta,
-                                        Begin begin, Fold fold, Finish finish) {
+                                        Begin begin, Fold fold, Finish finish,
+                                        int acc_run = 0, bool acc_cross = false) {
   using Acc = typename Mma::Acc;
   constexpr int KB = boxes_per_stage(QREGS);
   const int warp = threadIdx.x >> 5;
@@ -470,6 +478,7 @@ __device__ __forceinline__ void consume(const Geometry& g, const uint8_t* q_s,
   }
   uint32_t stage = 0, phase = 0;
   int held = -1;  // the stage whose wgmma group may still be running
+  bool fresh = true;  // ACCUM: this unit starts its sets' runs
   auto release = [&](int st) {
     __syncwarp();
     if (lane == 0) {
@@ -484,6 +493,8 @@ __device__ __forceinline__ void consume(const Geometry& g, const uint8_t* q_s,
   // (sub-block pos - 1) when fold_prev
   auto run = [&](Acc& cur, Acc& prev, int pos, bool fold_prev, int s,
                  int half) {
+    bool keep = false;  // ACCUM: add to the set's sums instead of clearing
+    if constexpr (ACCUM) keep = (pos & (acc_run - 1)) >= 2 || !fresh;
 #pragma unroll
     for (int b0 = 0; b0 < (QREGS > 0 ? QREGS : g.n_box); b0 += KB) {
       mbar_wait(&r.full[stage], phase);
@@ -501,7 +512,8 @@ __device__ __forceinline__ void consume(const Geometry& g, const uint8_t* q_s,
 #pragma unroll
           for (int kk = 0; kk < kBoxBytes / 32; ++kk)
             Mma::rs(cur, qa[4 * (b0 + bb) + kk],
-                    sw128_desc(dtile + bb * kDBox + kk * 32), b0 + bb > 0 || kk > 0);
+                    sw128_desc(dtile + bb * kDBox + kk * 32),
+                    b0 + bb > 0 || kk > 0 || keep);
         }
       } else {  // one box per stage
         const uint8_t* qtile =
@@ -509,7 +521,7 @@ __device__ __forceinline__ void consume(const Geometry& g, const uint8_t* q_s,
 #pragma unroll
         for (int kk = 0; kk < kBoxBytes / 32; ++kk)
           Mma::ss(cur, sw128_desc(qtile + kk * 32),
-                  sw128_desc(dtile + kk * 32), b0 > 0 || kk > 0);
+                  sw128_desc(dtile + kk * 32), b0 > 0 || kk > 0 || keep);
       }
       wgmma_commit();
       wgmma_wait<1>();  // every group but this stage's is done
@@ -531,6 +543,7 @@ __device__ __forceinline__ void consume(const Geometry& g, const uint8_t* q_s,
       const int s = u / (2 * g.parts);
       const int first = part * per_part;  // per_part is even
       if (live) begin();
+      if constexpr (ACCUM) fresh = !acc_cross || u == cta;
       for (int pos = first; pos < first + per_part; pos += 2) {
         run(acc0, acc1, pos, pos > first, s, half);
         run(acc1, acc0, pos + 1, true, s, half);
@@ -546,6 +559,7 @@ __device__ __forceinline__ void consume(const Geometry& g, const uint8_t* q_s,
     }
   } else {
     static_assert(FLIGHT == 2 || FLIGHT == 1, "one or two groups in flight");
+    static_assert(!ACCUM, "sets accumulate in place in the two-set loop only");
     Acc acc2;
     int held_q[FLIGHT];  // stages whose groups may still run, oldest first
 #pragma unroll
@@ -636,16 +650,18 @@ __device__ __forceinline__ void consume(const Geometry& g, const uint8_t* q_s,
   }
 }
 
-// The stream over a row-major corpus (kernels A, C and D): the producer
+// The stream over a row-major corpus (kernels A, C, D and S): the producer
 // thread loads doc tiles into one ring, which the consumers read (FLIGHT,
-// PAIRS: consume's measurement variants).
+// PAIRS: consume's measurement variants; ACCUM, acc_run, acc_cross: kernel
+// S's sums in place).
 template <int QREGS, typename Mma, int FLIGHT = 1, bool PAIRS = false,
-          typename Begin, typename Fold, typename Finish>
+          bool ACCUM = false, typename Begin, typename Fold, typename Finish>
 __device__ __forceinline__ void stream_tiles(const Geometry& g,
                                              const CUtensorMap* tq,
                                              const CUtensorMap* tc,
                                              Begin begin, Fold fold,
-                                             Finish finish) {
+                                             Finish finish, int acc_run = 0,
+                                             bool acc_cross = false) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -678,8 +694,9 @@ __device__ __forceinline__ void stream_tiles(const Geometry& g,
       produce(g, tq, tc, q_s, qbar, r, kSuper, qt, cta, rank);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    consume<QREGS, Mma, FLIGHT, PAIRS>(g, q_s, qbar, r, g.cluster, qt, cta,
-                                       begin, fold, finish);
+    consume<QREGS, Mma, FLIGHT, PAIRS, ACCUM>(g, q_s, qbar, r, g.cluster, qt,
+                                              cta, begin, fold, finish, acc_run,
+                                              acc_cross);
   }
 }
 

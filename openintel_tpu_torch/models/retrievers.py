@@ -11,6 +11,13 @@ since PyTorch dispatches eagerly.
 
 Filtered search (``filter_mask``) is not ported yet (ROADMAP.md) and raises
 ``NotImplementedError``.
+
+On the card the three serving stages can overlap (``serving.py``):
+``prepare`` stages its operands from pinned host memory on the calling
+thread's current stream and records an event, which the step waits for on
+its own stream; ``copy_back`` queues the result's copy into pinned host
+buffers right after the step, and ``finalize_prepared`` waits for that
+copy alone. On the CPU each stage runs to its end in turn.
 """
 
 from __future__ import annotations
@@ -81,6 +88,28 @@ class PreparedBatch:
     candidates_per_arm: int
     presorted: bool
     max_run: int
+    # on the card: recorded on the staging stream after the operands' copies
+    ready: Optional[torch.cuda.Event] = None
+
+
+@dataclass
+class HostCopy:
+    """A step's (vals, ids) on their way to the host
+    (``HybridRetriever.copy_back``): on the card pinned buffers that hold
+    the result once ``done`` has completed; on the CPU the tensors
+    themselves (``done`` None)."""
+
+    vals: torch.Tensor  # (nb, db, k) f32
+    ids: torch.Tensor  # (nb, db, k) int32
+    done: Optional[torch.cuda.Event] = None
+
+
+def _staged(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``x`` on ``dev``: on the card from pinned memory, queued on the
+    current stream without waiting for it."""
+    if dev.type != "cuda":
+        return x.to(dev)
+    return x.pin_memory().to(dev, non_blocking=True)
 
 
 AUTO_PRUNE_DOCS = 100_000  # corpora above this default to pruned plans
@@ -461,20 +490,24 @@ class HybridRetriever:
             )
         q32 = torch.from_numpy(q.reshape(nb, db, q.shape[1]))
         if self.dense.kernel in _QUANTIZED:
-            qbs8 = quantize_int8(q32).to(dev)
+            qbs8 = _staged(quantize_int8(q32), dev)
         else:
             qbs8 = torch.zeros((nb, db, 1), dtype=torch.int8, device=dev)
-        return PreparedBatch(
-            queries=q32.to(device=dev, dtype=self.dense.query_dtype),
+        prep = PreparedBatch(
+            queries=_staged(q32, dev).to(self.dense.query_dtype),
             queries_i8=qbs8,
-            plan_doc_ids=torch.from_numpy(plan.doc_ids.reshape(nb, db, w)).to(dev),
-            plan_weights=torch.from_numpy(plan.weights.reshape(nb, db, w)).to(dev),
+            plan_doc_ids=_staged(torch.from_numpy(plan.doc_ids.reshape(nb, db, w)), dev),
+            plan_weights=_staged(torch.from_numpy(plan.weights.reshape(nb, db, w)), dev),
             n_queries=b,
             k=k,
             candidates_per_arm=c,
             presorted=plan.presorted,
             max_run=plan.max_terms,
         )
+        if dev.type == "cuda":
+            prep.ready = torch.cuda.Event()
+            prep.ready.record(torch.cuda.current_stream(dev))
+        return prep
 
     def rebatch(self, prep: PreparedBatch, device_batch: int) -> PreparedBatch:
         """Re-chunk a PreparedBatch to another sub-batch size without
@@ -498,7 +531,19 @@ class HybridRetriever:
             candidates_per_arm=prep.candidates_per_arm,
             presorted=prep.presorted,
             max_run=prep.max_run,
+            ready=prep.ready,
         )
+
+    def _await_staging(self, prep: PreparedBatch) -> None:
+        """On the card: the current stream waits for ``prep``'s staging
+        copies (queued on another thread's stream, maybe), and the caching
+        allocator learns that the staged blocks are read here too."""
+        if prep.ready is None:
+            return
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(prep.ready)
+        for t in (prep.queries, prep.queries_i8, prep.plan_doc_ids, prep.plan_weights):
+            t.record_stream(stream)
 
     def run_prepared_device(
         self, prep: PreparedBatch, *, plain: bool = False
@@ -510,6 +555,7 @@ class HybridRetriever:
         nb, db = prep.queries.shape[:2]
         k, c = prep.k, prep.candidates_per_arm
         dense = self.dense
+        self._await_staging(prep)
         out_vals, out_ids = [], []
         for i in range(nb):
             d_vals, d_ids = dense_arm_topk(
@@ -542,14 +588,36 @@ class HybridRetriever:
             )
         return self.finalize_prepared(prep, self.run_prepared_device(prep))
 
+    def copy_back(self, device_out) -> HostCopy:
+        """Queue the copy of a ``run_prepared_device`` result to the host.
+        On the card: into pinned buffers on the current stream, right
+        behind the step, with an event after it, so that a later wait
+        covers this copy and not work queued after it (the next wave's
+        step); on the CPU the tensors as they are."""
+        vals, ids = device_out
+        if vals.device.type != "cuda":
+            return HostCopy(vals.cpu(), ids.cpu())
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in (vals, ids)]
+        for dst, src in zip(host, (vals, ids)):
+            dst.copy_(src, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(vals.device))
+        return HostCopy(host[0], host[1], done)
+
     def finalize_prepared(self, prep: PreparedBatch, device_out) -> SearchResult:
-        """Copy a device result of ``run_prepared_device`` back to the host."""
+        """The (b, k) result of ``run_prepared_device`` on the host:
+        ``device_out`` is its (vals, ids), whose copy is queued here, or
+        the ``HostCopy`` of an earlier ``copy_back``, whose copy alone is
+        waited for."""
         nb, db = prep.queries.shape[:2]
         b, k = prep.n_queries, prep.k
-        vals, ids = device_out
+        copy = device_out if isinstance(device_out, HostCopy) else self.copy_back(device_out)
+        if copy.done is not None:
+            copy.done.synchronize()
+        # copied out of the pinned buffers, which go back to their pool
         return SearchResult(
-            ids=ids.cpu().numpy().reshape(nb * db, k)[:b],
-            scores=vals.cpu().numpy().reshape(nb * db, k)[:b],
+            ids=np.array(copy.ids.numpy().reshape(nb * db, k)[:b]),
+            scores=np.array(copy.vals.numpy().reshape(nb * db, k)[:b]),
         )
 
     def search_prepared(

@@ -76,6 +76,8 @@ _SIGNATURES = {
     "oi_turbo_i8_tma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, corpus, out, b_pad, dim, n_super, stream
     "oi_dot_only": [_P, _P, _P, _I, _I, _I, _P],
+    # q, corpus, out, b_pad, dim, n_super, paired, run_cap, stream
+    "oi_dot_only_tma": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -32,9 +32,11 @@ Counterparts of :mod:`openintel_tpu.ops.pallas.dense_topk`:
   (``openintel_tpu_torch.tools``) run, on kernel A's stream; the
   ``mma.sync`` kernel of ``csrc/turbo_i8.cu`` stays as the A/B control
   (:func:`i8_turbo_cells_v1`);
-- kernel S, ``csrc/dot_only.cu`` (replaces ``_dot_only_kernel`` of
+- kernel S, ``csrc/dot_only_tma.cu`` (replaces ``_dot_only_kernel`` of
   ``scripts/bench_kernel_decomp.py``): :func:`dot_only`, the int8
-  stream-floor probe;
+  stream-floor probe, on kernel A's stream with the sums kept in the
+  wgmma accumulators; the ``mma.sync`` kernel of ``csrc/dot_only.cu``
+  stays as the A/B control (:func:`dot_only_cells_v1`);
 - :func:`exact_rescore`, :func:`quantize_int8`, :func:`quantize_int4`,
   :func:`auto_i8_group` and the key constants, as torch ops.
 
@@ -110,6 +112,9 @@ _TWIN_CHUNK_SUPERS = 8  # supers per product in the plain twins of C, D, E, S
 # 1 meet by atomicMax, slots 2 through buffers merged by a second kernel;
 # PERF.md has E2's and C2's measurements)
 _MAX_PARTS = {1: 16, 2: 2}
+_S_MAX_PARTS = 16  # kernel S: parts a super may be split into
+_S_PAIRED = True  # kernel S served in 2-block clusters (PERF.md: paired vs unpaired)
+_S_DOT_MAX = 128 * 128  # |q * d| of one int8 feature pair, at most
 
 
 def _round_up(x: int, m: int) -> int:
@@ -813,30 +818,161 @@ def dense_topk_fast_i8(
 # ---------------------------------------------------------------------------
 
 
+def _int8_dot_chunks(queries: torch.Tensor, corpus: torch.Tensor):
+    """Every int8 dot of kernel S, a few supers at a time: yields (lo, hi,
+    dots) with dots (B_pad, hi - lo, 128 pos, 128 lanes) int64 for supers
+    lo .. hi - 1. A float32 product (TF32 off) while every partial sum is
+    an integer below 2**24 (D * 128**2 < 2**24), else float64: exact
+    either way."""
+    require_true_f32()
+    b_pad, dim = queries.shape
+    n_super = corpus.shape[0] // _TURBO_UNIT
+    exact = torch.float32 if dim * _S_DOT_MAX < 2**24 else torch.float64
+    qf = queries.to(exact)
+    for lo in range(0, n_super, _TWIN_CHUNK_SUPERS):
+        hi = min(lo + _TWIN_CHUNK_SUPERS, n_super)
+        docs = corpus[lo * _TURBO_UNIT : hi * _TURBO_UNIT].to(exact)
+        yield lo, hi, (qf @ docs.T).to(torch.int64).view(b_pad, hi - lo, _SUPER, 128)
+
+
+def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    return ((x + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
 def dot_only_plain(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
     """Plain twin of kernel S. Returns (B_pad, 128) int32: column l holds
     the sum of dot(q, doc) over every doc of the padded corpus with
     id % 128 == l, wrapped mod 2**32 as the reference's int32 adds wrap
     (summed here in int64, then wrapped)."""
-    require_true_f32()
-    b_pad = queries.shape[0]
+    acc = torch.zeros((queries.shape[0], 128), dtype=torch.int64, device=queries.device)
+    for _, _, dots in _int8_dot_chunks(queries, corpus):
+        acc += dots.sum(dim=(1, 2))
+    return _wrap_int32(acc)
+
+
+def dot_only_run(dim: int, parts: int, run_cap: int = 0) -> int:
+    """Kernel S's run (``csrc/dot_only_tma.cu``): the sub-blocks of a part
+    (128 / ``parts``) whose dots a pair of accumulator sets sums in place
+    before the sums go to the output, halved until no set's int32 sum can
+    overflow (run / 2 dots of at most 16,384 D each); ``run_cap`` > 0
+    caps it there instead, overflow or not (a measurement). A power of
+    two, at least 2. On the card a ``run_cap`` also caps the parts at
+    128 / ``run_cap``, so that a part holds a whole run."""
+    run = _SUPER // parts
+    while run > 2 and (
+        run > run_cap if run_cap else (run // 2) * dim * _S_DOT_MAX > 2**31 - 1
+    ):
+        run //= 2
+    return run
+
+
+def dot_only_plan(
+    b_pad: int, n_super: int, dim: int, *, sms: int = 132, run_cap: int = 0
+) -> dict:
+    """Kernel S's launch plan as ``oi_dot_only_tma`` makes it: ``parts``
+    and ``ctas_per_qt`` by ``plan_grid`` (at most 16 parts; 128 /
+    ``run_cap`` with a cap), the ``run`` of :func:`dot_only_run`, and
+    ``stride``: when the blocks of a query tile can be trimmed to a
+    multiple of 2 parts at no cost in rounds of units (and no set's sum
+    over a block's units can overflow), block c's units share their lane
+    half and part, their supers ``stride`` apart, and its runs go on across
+    them (``ctas_per_qt`` is then the trimmed count); else 0."""
+    max_parts = max(_SUPER // run_cap, 1) if run_cap else _S_MAX_PARTS
+    plan = _stream_grid(b_pad, n_super, max_parts, sms)
+    parts, ctas = plan["parts"], plan["ctas_per_qt"]
+    run = dot_only_run(dim, parts, run_cap)
+    units, step = n_super * 2 * parts, 2 * parts
+    trimmed = ctas // step * step
+    stride = 0
+    if not run_cap and run == _SUPER // parts and trimmed:
+        rounds = -(-units // trimmed)
+        if rounds == -(-units // ctas) and rounds * (run // 2) * dim * _S_DOT_MAX <= 2**31 - 1:
+            ctas, stride = trimmed, trimmed // step
+    return {"parts": parts, "ctas_per_qt": ctas, "run": run, "stride": stride}
+
+
+def dot_only_runs_plain(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    *,
+    parts: int,
+    run_cap: int = 0,
+    stride: int = 0,
+) -> tuple[torch.Tensor, int]:
+    """Twin of kernel S's order of adds on the stream: per (super, lane,
+    part) the sub-blocks go in runs of :func:`dot_only_run`, or, with
+    ``stride`` > 0 (:func:`dot_only_plan`), the whole part over the supers
+    s, s + stride, ... that one block walks; within a run the even
+    sub-blocks sum into one accumulator set and the odd ones into the other
+    (in int64 here), each set's run sum is taken as an int32 register
+    holds it (wrapped), and the two go into the output by unsigned adds
+    mod 2**32. Returns (the (B_pad, 128) int32 sums, the number of set runs
+    whose sum left the int32 range): with the planned runs the count is 0,
+    so the sums do not depend on how the tensor cores treat an int32
+    overflow."""
+    _check_parts(parts, 2)
+    b_pad, dim = queries.shape
+    run = _SUPER // parts if stride else dot_only_run(dim, parts, run_cap)
     n_super = corpus.shape[0] // _TURBO_UNIT
-    qf = queries.float()
-    acc = torch.zeros((b_pad, 128), dtype=torch.int64, device=queries.device)
-    for lo in range(0, n_super, _TWIN_CHUNK_SUPERS):
-        hi = min(lo + _TWIN_CHUNK_SUPERS, n_super)
-        docs = corpus[lo * _TURBO_UNIT : hi * _TURBO_UNIT].float()
-        acc += (qf @ docs.T).to(torch.int64).view(b_pad, -1, 128).sum(dim=1)
-    return (((acc + 2**31) % 2**32) - 2**31).to(torch.int32)
+    # the open runs: (b_pad, runs of a super, set, lane) by super class
+    classes = stride or n_super
+    sets = torch.zeros((classes, b_pad, _SUPER // run, 2, 128), dtype=torch.int64,
+                       device=queries.device)
+    for lo, hi, dots in _int8_dot_chunks(queries, corpus):
+        # (b_pad, supers, runs, set, lane): sub-block pos = run * r + 2 j + set
+        chunk = dots.view(b_pad, hi - lo, _SUPER // run, run // 2, 2, 128).sum(dim=3)
+        for i, sup in enumerate(range(lo, hi)):
+            sets[sup % classes] += chunk[:, i]
+    overflows = int(((sets < -(2**31)) | (sets >= 2**31)).sum())
+    total = _wrap_int32(sets).to(torch.int64).sum(dim=(0, 2, 3)) % 2**32
+    return _wrap_int32(total), overflows
 
 
-def dot_only_cells(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
-    """Kernel S (``csrc/dot_only.cu``) on CUDA tensors; its plain twin on
-    CPU tensors. Same contract as :func:`dot_only_plain`."""
+def dot_only_cells(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    *,
+    paired: bool | None = None,
+    run_cap: int = 0,
+) -> torch.Tensor:
+    """Kernel S on CUDA tensors: kernel A's TMA + wgmma stream
+    (``csrc/dot_only_tma.cu``, launched as :func:`dot_only_plan` says);
+    its plain twin on CPU tensors. Same contract as :func:`dot_only_plain`,
+    any D (a multiple of 16).
+    ``paired``: blocks in 2-block clusters at an even number of query
+    tiles (default ``_S_PAIRED``); ``run_cap`` (0 to 128): see
+    :func:`dot_only_run` (0, the default, keeps every int32 sum in
+    range)."""
+    if not 0 <= run_cap <= _SUPER:
+        raise ValueError(f"run_cap must lie in 0 .. {_SUPER}, got {run_cap}")
     if queries.device.type == "cpu" and corpus.device.type == "cpu":
         return dot_only_plain(queries, corpus)
     _require_cuda(queries, corpus)
-    n_super = _check_i8_operands("kernel S", queries, corpus)
+    n_super = _check_i8_operands("kernel S", queries, corpus, staged=False)
+    b_pad, dim = queries.shape
+    out = torch.empty((b_pad, 128), dtype=torch.int32, device=queries.device)
+    paired = _S_PAIRED if paired is None else paired
+    with torch.cuda.device(queries.device):
+        _kernels.launch(
+            "oi_dot_only_tma",
+            _kernels.ptr(queries), _kernels.ptr(corpus), _kernels.ptr(out),
+            b_pad, dim, n_super, int(paired), run_cap, _kernels.stream_of(queries),
+        )
+    dot_only_cells.launches += 1
+    return out
+
+
+dot_only_cells.launches = 0
+
+
+def dot_only_cells_v1(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+    """Kernel S's ``mma.sync`` version (``csrc/dot_only.cu``), the control
+    of A/B runs; its plain twin on CPU tensors. Same contract as
+    :func:`dot_only_plain`; its 32-query tile must fit in shared memory."""
+    if queries.device.type == "cpu" and corpus.device.type == "cpu":
+        return dot_only_plain(queries, corpus)
+    _require_cuda(queries, corpus)
+    n_super = _check_i8_operands("kernel S v1", queries, corpus)
     b_pad, dim = queries.shape
     out = torch.empty((b_pad, 128), dtype=torch.int32, device=queries.device)
     with torch.cuda.device(queries.device):
@@ -845,11 +981,11 @@ def dot_only_cells(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
             _kernels.ptr(queries), _kernels.ptr(corpus), _kernels.ptr(out),
             b_pad, dim, n_super, _kernels.stream_of(queries),
         )
-    dot_only_cells.launches += 1
+    dot_only_cells_v1.launches += 1
     return out
 
 
-dot_only_cells.launches = 0
+dot_only_cells_v1.launches = 0
 
 
 def dot_only(
@@ -1303,15 +1439,21 @@ def fused_stream_plan(b: int, n_docs: int, sms: int = 132) -> dict:
     leaves one list per query, so a query gets ``ctas_per_qt`` lists (the
     kernel refuses a count that differs from its own plan)."""
     n_super = -(-n_docs // _TURBO_UNIT)
+    return {"n_super": n_super, **_stream_grid(b, n_super, _STREAM_MAX_PARTS, sms)}
+
+
+def _stream_grid(b: int, n_super: int, max_parts: int, sms: int) -> dict:
+    """``plan_grid`` of ``csrc/tma_stream.cuh``: the parts a super is split
+    into and the blocks per 128-query tile."""
     per_qt = max(sms // -(-b // _STREAM_QUERY_ROWS), 1)
     best, plan = -1.0, {}
     parts = 1
-    while parts <= _STREAM_MAX_PARTS:
+    while parts <= min(max_parts, _STREAM_MAX_PARTS):
         units = n_super * 2 * parts
         c = min(units, per_qt)
         eff = units / (-(-units // c) * per_qt)
         if eff > best + 1e-9:
-            best, plan = eff, {"n_super": n_super, "parts": parts, "ctas_per_qt": c}
+            best, plan = eff, {"parts": parts, "ctas_per_qt": c}
         if eff >= 0.9:
             break
         parts *= 2
@@ -1505,6 +1647,7 @@ def reset_launch_counts() -> None:
     i8_turbo_cells.launches = {1: 0, 2: 0}
     i8_turbo_cells_v1.launches = {1: 0, 2: 0}
     dot_only_cells.launches = 0
+    dot_only_cells_v1.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -1527,4 +1670,5 @@ def launch_counts() -> dict[str, int]:
         "turbo_i8_v1": i8_turbo_cells_v1.launches[1],
         "turbo_i8_top2_v1": i8_turbo_cells_v1.launches[2],
         "dot_only": dot_only_cells.launches,
+        "dot_only_v1": dot_only_cells_v1.launches,
     }

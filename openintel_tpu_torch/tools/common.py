@@ -136,8 +136,13 @@ def time_per_sub_batch(run, nb: int, reps: int, device: torch.device):
 def row_line(row: dict) -> str:
     """One row as the scripts print it: ms per sub-batch (median and best),
     microseconds per query and queries per second at the best, and recall
-    where measured."""
+    where measured; a derived row, its difference alone."""
     best = row["ms_best"]
+    if row.get("derived"):  # a difference of two rows: no rate of its own
+        return (
+            f"{row['label']:<30} {row['ms_median']:8.3f} ms/sub-batch median "
+            f"{best:8.3f} best  (a difference of two rows)"
+        )
     line = (
         f"{row['label']:<30} {row['ms_median']:8.3f} ms/sub-batch median "
         f"{best:8.3f} best  {best * 1e3 / row['batch']:7.3f} us/q  "

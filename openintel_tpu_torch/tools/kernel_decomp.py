@@ -4,19 +4,24 @@ The port's counterpart of the reference's ``scripts/bench_kernel_decomp.py``.
 Probes, all over the same row-major int8 corpus and the same 32-query
 tiles:
 
-- dot-only: kernel S (``csrc/dot_only.cu``), the products summed per lane,
-  with no key pack or fold: the stream and tensor-core floor;
+- dot-only: kernel S (``csrc/dot_only_tma.cu``), the products summed per
+  lane, with no key pack or fold: the stream and tensor-core floor, its
+  blocks unpaired as C2's are (S is served in 2-block clusters);
 - fold-only: kernel C2 (``csrc/turbo_i8_tma.cu``), the key pack and top-2
   fold, its cells written out and not reduced;
 - slots=1 / slots=2: ``dense_topk_fast_i8`` at k=32, kernel C1 or C2 plus
-  the candidate selection and decode, the whole candidate pass.
+  the candidate selection and decode, the whole candidate pass;
 
-Each row's label names the stream its kernel runs on: S still runs on the
-``mma.sync`` loop of ``csrc/turbo_common.cuh``, C1 and C2 on the TMA +
-wgmma stream of ``csrc/tma_stream.cuh``. Until S moves onto that stream,
-the dot-only and fold-only rows time two different streams, and
-subtracting one from the other means nothing; the same-stream split of C2
-into its stream, products and fold is ``tools/stream_ablation.py``'s.
+and one derived row, fold = fold-only - dot-only (medians, and bests).
+
+Each row's label names the stream its kernel runs on. S, C1 and C2 all run
+on the TMA + wgmma stream of ``csrc/tma_stream.cuh`` with kernel A's
+geometry, S and C2 both unpaired here, so the derived row subtracts like
+from like: what C2's key pack, fold and cell writes cost over the products
+summed in place (S adds its sums into the output once a block, C2 writes
+its cells; the rest of their streams is one code path). The same-stream split of C2 into its
+stream, products and fold with parts compiled out is
+``tools/stream_ablation.py``'s.
 
 The port's selection is an exact top-k (ties to the lower column) where the
 reference ran ``approx_max_k``; the rows say "+select".
@@ -37,8 +42,7 @@ import torch
 from openintel_tpu_torch.ops import dense_topk as T
 from openintel_tpu_torch.tools import common
 
-# the stream each probe's kernel runs on
-MMA_SYNC = "[mma.sync loop]"
+# the stream the probes' kernels run on
 TMA_STREAM = "[TMA+wgmma stream]"
 
 
@@ -50,7 +54,8 @@ def decompose(
     reps: int,
 ) -> list[dict]:
     """Time the four probes over the NB sub-batches (the candidate passes at
-    k=32); one row each."""
+    k=32); one row each, then the derived fold row (``derived``: a
+    difference of two rows, not a time of its own)."""
     nb, batch, _ = q8s.shape
     q_pad = [T._pad_query_rows(q, T._I8_QUERY_TILE).contiguous() for q in q8s]
 
@@ -61,7 +66,10 @@ def decompose(
         )
 
     probes = [
-        (f"dot-only (MXU+stream floor) {MMA_SYNC}", lambda i: T.dot_only(corpus, q8s[i])),
+        (
+            f"dot-only (MXU+stream floor) {TMA_STREAM}",
+            lambda i: T.dot_only_cells(q_pad[i], corpus, paired=False),  # as C2 runs
+        ),
         (
             f"fold-only (pack+2max, no topk) {TMA_STREAM}",
             lambda i: T.i8_turbo_cells(q_pad[i], corpus, slots=2),
@@ -73,6 +81,14 @@ def decompose(
     for label, run in probes:
         med, best = common.time_per_sub_batch(run, nb, reps, corpus.device)
         rows.append({"label": label, "ms_median": med, "ms_best": best, "batch": batch})
+    dot, fold = rows[0], rows[1]
+    rows.append({
+        "label": f"fold = fold-only - dot-only {TMA_STREAM}",
+        "ms_median": fold["ms_median"] - dot["ms_median"],
+        "ms_best": fold["ms_best"] - dot["ms_best"],
+        "batch": batch,
+        "derived": True,
+    })
     return rows
 
 

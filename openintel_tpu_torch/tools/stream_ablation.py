@@ -1,10 +1,11 @@
-"""Where the time of kernels A, C2, C1, D, E2 and E1 goes on the TMA + wgmma
-stream, and of kernel B (v2) on its cp.async ring.
+"""Where the time of kernels A, C2, C1, D, E2, E1 and S goes on the TMA +
+wgmma stream, and of kernel B (v2) on its cp.async ring.
 
 Each kernel of ``csrc/tma_stream.cuh`` (A, ``csrc/i8_top2g_tma.cu``; C2
 and C1, ``csrc/turbo_i8_tma.cu``; D on bf16 rows,
-``csrc/turbo_bf16_tma.cu``; E2 and E1, ``csrc/turbo_i4_tma.cu``) is built
-several ways and timed at the main path's shapes:
+``csrc/turbo_bf16_tma.cu``; E2 and E1, ``csrc/turbo_i4_tma.cu``; S,
+``csrc/dot_only_tma.cu``) is built several ways and timed at the main
+path's shapes:
 
 - full: as the port ships it;
 - no-fold: the fold callbacks compiled out (``-DOI_STREAM_ABLATE=1``): the
@@ -51,6 +52,13 @@ rows of a warp at once, a quad of lanes each, and unrolled-sort
 (``-DOI_B_COMPACT=2``) unrolls the one-row-at-a-time sort. It is timed on
 the first 98,304 docs (the largest corpus that selects it), k = 32,
 B=256 only, and its merge kernel runs in every variant.
+
+Kernel S has no fold: its callback only adds each run's sums into the
+output (``atomicAdd``), so its no-fold build drops those adds and nothing
+else (the output stays zero); S runs the stream variants, the consumers
+alone with and without the adds, and at B=256 the no-cluster ones, and
+also unpaired (``paired=False``, a launch option, as built). Its full and
+no-cluster builds are held to the twin first.
 
 Kernel A's time includes its second stage (the group fold), which the
 variants keep. E2 is also timed with one part per super (as built it
@@ -128,6 +136,10 @@ C_EXACT = ("full", "no-cluster", "two-in-flight", "pair-fold", "split-pipes", "q
 # kernel B's stream route (bf16 rows): also its selection's tests alone,
 # without the threshold the blocks share, and the other two compactions
 B_STREAM = (*STREAM, "tests-only", "no-shared", "quad-compact", "unrolled-sort")
+# kernel S: the stream variants and the consumers alone, with and without
+# the run-end adds (its no-fold drops only those)
+S_STREAM = (*STREAM, "no-load", "no-load no-fold")
+S_EXACT = ("full", "no-cluster")  # S's variants that still compute the sums
 B_DOCS = 98_304  # kernel B's corpus: the largest that selects it
 CALLS = 10  # launches per sample
 
@@ -156,6 +168,7 @@ def plan(batch: int) -> dict[str, tuple[str, ...]]:
         "C2 1 part": ("full",),
         "C2 4 parts": ("full",),
         "D": STREAM, "E2": E_STREAM, "E1": E_STREAM, "E2 1 part": ("full",),
+        "S": S_STREAM + (C_CLUSTER if batch == 256 else ()), "S unpaired": ("full",),
     }
     if batch == 256:
         kernels.update({"B f32": STREAM, "B bf16": STREAM, "B bf16 stream": B_STREAM})
@@ -191,6 +204,8 @@ def ablate(
             "B f32": lambda: T.fused_topk(b_rows, qf, common.C),
             "B bf16": lambda: T.fused_topk(b_bf16, qb, common.C),
             "B bf16 stream": lambda: T.fused_topk(b_bf16, qb, common.C, route="stream"),
+            "S": lambda: T.dot_only_cells(q8, e8),
+            "S unpaired": lambda: T.dot_only_cells(q8, e8, paired=False),
         }
         kernels = plan(batch)
         if only is not None:
@@ -209,6 +224,11 @@ def ablate(
                     with _kernels.extra_flags(VARIANTS[name]):
                         exact[name] = bool(torch.equal(calls[kernel](), want))
                 del want
+            if kernel.startswith("S"):  # the lane sums, by the exact variants
+                want = T.dot_only_plain(q8, e8)
+                for name in set(names) & set(S_EXACT):
+                    with _kernels.extra_flags(VARIANTS[name]):
+                        exact[name] = bool(torch.equal(calls[kernel](), want))
             samples = {name: [] for name in names}
             for _ in range(reps + 1):  # the first round warms up
                 for name in names:
@@ -254,7 +274,8 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--kernels", default=None,
         help="comma-separated kernels to time (A, C2, C1, 'C2 1 part', 'C2 4 parts', D, "
-        "E2, E1, 'E2 1 part', 'B f32', 'B bf16', 'B bf16 stream'; default all)",
+        "E2, E1, 'E2 1 part', S, 'S unpaired', 'B f32', 'B bf16', 'B bf16 stream'; "
+        "default all)",
     )
     parser.add_argument("--batches", default="128,256", help="comma-separated batch sizes")
     parser.add_argument(

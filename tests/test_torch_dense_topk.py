@@ -268,7 +268,7 @@ NO_LAUNCHES = {
     "i8_top2g": 0, "i8_top2g_v1": 0, "i8_fold": 0, "fused_topk": 0, "fused_topk_v1": 0,
     "turbo_f32": 0, "turbo_f32_v1": 0, "turbo_i4": 0, "turbo_i4_top2": 0,
     "turbo_i4_v1": 0, "turbo_i4_top2_v1": 0, "turbo_i8": 0, "turbo_i8_top2": 0,
-    "turbo_i8_v1": 0, "turbo_i8_top2_v1": 0, "dot_only": 0,
+    "turbo_i8_v1": 0, "turbo_i8_top2_v1": 0, "dot_only": 0, "dot_only_v1": 0,
 }
 
 
@@ -292,6 +292,7 @@ def test_wrappers_route_cpu_to_twins_without_counting():
         assert T.i8_turbo_cells(q, corpus, slots=slots).shape == (32, 128 * slots)
         assert T.i8_turbo_cells_v1(q, corpus, slots=slots).shape == (32, 128 * slots)
     assert T.dot_only_cells(q, corpus).shape == (32, 128)
+    assert T.dot_only_cells_v1(q, corpus).shape == (32, 128)
     assert T.launch_counts() == NO_LAUNCHES
 
 
@@ -325,4 +326,6 @@ def test_wrappers_refuse_non_cuda_devices():
         T.i8_turbo_cells_v1(q, corpus, slots=2)
     with pytest.raises(ValueError, match="CUDA"):
         T.dot_only_cells(q, corpus)
+    with pytest.raises(ValueError, match="CUDA"):
+        T.dot_only_cells_v1(q, corpus)
     assert T.launch_counts() == NO_LAUNCHES

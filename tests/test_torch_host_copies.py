@@ -2,8 +2,9 @@
 
 The port imports nothing of the JAX package, so it keeps copies of the
 jax-free host modules it needs: ``ops/tokenizer.py``, ``index/schema.py``,
-``index/build.py``, ``index/synthetic.py`` and ``native/`` (the C++
-tokenizer, postings builder and query planner). The same inputs go through
+``index/build.py``, ``index/synthetic.py``, ``native/`` (the C++
+tokenizer, postings builder and query planner) and ``serving.py``'s
+``fuse_filter_entries``. The same inputs go through
 each copy and its original; every array must be equal, bit for bit. The
 carry-across functions of ``convert`` must give port indexes whose arrays
 are the JAX-built ones.
@@ -15,12 +16,14 @@ import pytest
 import torch
 
 from openintel_tpu import native as jnative
+from openintel_tpu import serving as jserving
 from openintel_tpu.index import build as jbuild
 from openintel_tpu.index import schema as jschema
 from openintel_tpu.index import synthetic as jsyn
 from openintel_tpu.ops import tokenizer as jtok
 from openintel_tpu_torch import convert
 from openintel_tpu_torch import native as tnative
+from openintel_tpu_torch import serving as tserving
 from openintel_tpu_torch.index import build as tbuild
 from openintel_tpu_torch.index import schema as tschema
 from openintel_tpu_torch.index import synthetic as tsyn
@@ -179,3 +182,31 @@ def test_convert_carries_jax_built_indexes_across():
             rows.view(torch.int32 if wide else torch.int16).numpy(),
             np.asarray(dense.embeddings).view(np.int32 if wide else np.int16),
         )
+
+
+@pytest.mark.parametrize("case", ["mixed", "all-none", "duplicate-keys", "no-none"])
+def test_fuse_filter_entries_copy_matches_original(case):
+    """Random per-query filter entries: mixed filtered and unfiltered
+    queries, none filtered, keys repeated (deduped by key, the first mask
+    seen serves), and every query filtered."""
+    rng = np.random.default_rng({"mixed": 1, "all-none": 2, "duplicate-keys": 3, "no-none": 4}[case])
+    n_docs, n_q = 50, 24
+    keys = [("tenant", i) for i in range(5)]
+    masks = {k: rng.random(n_docs) < 0.5 for k in keys}
+    entries = []
+    for _ in range(n_q):
+        k = keys[int(rng.integers(len(keys)))]
+        if case == "all-none" or (case == "mixed" and rng.random() < 0.4):
+            entries.append(None)
+        elif case == "duplicate-keys":  # same key, another mask: the first one wins
+            entries.append((k, rng.random(n_docs) < 0.5))
+        else:
+            entries.append((k, masks[k]))
+    got = tserving.fuse_filter_entries(entries)
+    want = jserving.fuse_filter_entries(entries)
+    if case == "all-none":
+        assert got == want == (None, None)
+        return
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)

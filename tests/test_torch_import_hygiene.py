@@ -31,6 +31,7 @@ SLICE = [
     "openintel_tpu_torch.ops.bm25",
     "openintel_tpu_torch.ops.dense",
     "openintel_tpu_torch.ops.dense_topk",
+    "openintel_tpu_torch.serving",
     "openintel_tpu_torch.ops.fusion",
     "openintel_tpu_torch.native",
     "openintel_tpu_torch.ops.ranking",
@@ -70,8 +71,9 @@ def test_port_imports_no_jax_and_initialises_no_cuda():
 
 def test_port_imports_nothing_of_the_jax_package_after_a_search():
     """Importing the port and running a small CPU search (the hybrid
-    retriever, the int8 candidate op and a measurement tool's core) loads
-    no ``openintel_tpu`` module and no jax."""
+    retriever, the int8 candidate op, a measurement tool's core, a short
+    pipelined stream and a coalesced call) loads no ``openintel_tpu``
+    module and no jax."""
     code = (
         "import importlib, sys, torch\n"
         f"for name in {SLICE!r}:\n"
@@ -86,6 +88,11 @@ def test_port_imports_nothing_of_the_jax_package_after_a_search():
         "assert dense_topk_fast_i8(c, q, k=4)[1].shape == (3, 4)\n"
         "assert dot_only(c, q).shape == (3, 128)\n"
         "kernel_decomp.decompose(c, q[None], 300, reps=1)\n"
+        "from openintel_tpu_torch.serving import BatchCoalescer, PipelinedSearcher\n"
+        "waves = [['apple moon'], ['rates', 'nvda earnings']]\n"
+        "out = list(PipelinedSearcher(r).search_stream(iter(waves), k=2))\n"
+        "assert [o.ids.shape for o in out] == [(1, 2), (2, 2)]\n"
+        "assert BatchCoalescer(r.search, max_batch=4).search(['apple'], k=2).ids.shape == (1, 2)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'openintel_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -148,12 +155,13 @@ def test_library_name_follows_the_sources():
     assert so.parent == _kernels.BUILD_DIR
     assert so.name.startswith("libopenintel_tpu_torch_") and so.suffix == ".so"
     assert {p.name for p in _kernels.sources()} == {
-        "dot_only.cu", "fused_topk.cu", "fused_topk_v2.cu", "i8_top2g.cu",
+        "dot_only.cu", "dot_only_tma.cu", "fused_topk.cu", "fused_topk_v2.cu", "i8_top2g.cu",
         "i8_top2g_tma.cu", "turbo_bf16_tma.cu", "turbo_f32.cu", "turbo_i4.cu",
         "turbo_i4_tma.cu", "turbo_i8.cu", "turbo_i8_tma.cu",
     }
     assert set(_kernels._SIGNATURES) == {
-        "oi_dot_only", "oi_fused_topk", "oi_fused_topk_v2", "oi_fused_topk_v2_tma",
+        "oi_dot_only", "oi_dot_only_tma", "oi_fused_topk", "oi_fused_topk_v2",
+        "oi_fused_topk_v2_tma",
         "oi_i8_top2g", "oi_i8_top2g_tma",
         "oi_i8_fold", "oi_turbo_bf16_tma", "oi_turbo_f32", "oi_turbo_i4",
         "oi_turbo_i4_tma", "oi_turbo_i8", "oi_turbo_i8_tma",

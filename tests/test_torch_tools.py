@@ -28,6 +28,8 @@ def _check_rows(rows, labels):
     assert [r["label"] for r in rows] == labels
     for r in rows:
         assert r["batch"] == BATCH
+        if r.get("derived"):
+            continue
         assert 0 < r["ms_best"] <= r["ms_median"] < float("inf")
         if "recall" in r:
             assert 0.0 <= r["recall"] <= 1.0
@@ -38,11 +40,18 @@ def test_kernel_decomp_core(operands):
     _, corpus, q8s, _, _ = operands
     rows = kernel_decomp.decompose(corpus, q8s, N, reps=1)
     _check_rows(rows, [
-        "dot-only (MXU+stream floor) [mma.sync loop]",
+        "dot-only (MXU+stream floor) [TMA+wgmma stream]",
         "fold-only (pack+2max, no topk) [TMA+wgmma stream]",
         "turbo slots=1 (+select+dec) [TMA+wgmma stream]",
         "turbo slots=2 (+select+dec) [TMA+wgmma stream]",
+        "fold = fold-only - dot-only [TMA+wgmma stream]",
     ])
+    # the derived row subtracts the dot-only row from the fold-only row
+    dot, fold, derived = rows[0], rows[1], rows[4]
+    assert derived["derived"] and not any(r.get("derived") for r in rows[:4])
+    assert derived["ms_median"] == fold["ms_median"] - dot["ms_median"]
+    assert derived["ms_best"] == fold["ms_best"] - dot["ms_best"]
+    assert common.row_line(derived).endswith("(a difference of two rows)")
 
 
 def test_topk_reduce_ab_core(operands):
@@ -125,7 +134,7 @@ def test_tool_commands_print_their_rows(tool, monkeypatch, capsys):
     lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith("cpu: host clock")
     assert any(line.startswith("timing: host clock, 1 reps of 2 sub-batches") for line in lines)
-    n_rows = {kernel_decomp: 4, topk_reduce_ab: 5, grouped_ab: 2}[tool]
+    n_rows = {kernel_decomp: 5, topk_reduce_ab: 5, grouped_ab: 2}[tool]
     assert sum("ms/sub-batch" in line for line in lines) == n_rows
 
 
@@ -171,6 +180,10 @@ def test_stream_ablation_plans_kernels_c_and_their_fold_variants(batch):
         assert ("paired" in names) == (batch == 256 and kernel == "C2")
     assert plan["C2 1 part"] == plan["C2 4 parts"] == ("full",)
     assert ("B bf16 stream" in plan) == (batch == 256)
+    # kernel S: its no-fold drops only the run-end adds
+    assert plan["S"][:5] == ("full", "no-fold", "stream", "no-load", "no-load no-fold")
+    assert ("no-cluster" in plan["S"]) == (batch == 256)
+    assert plan["S unpaired"] == ("full",)
     for names in plan.values():
         assert set(names) <= set(S.VARIANTS)
     assert S.VARIANTS["two-in-flight"] == ("-DOI_C_FOLD=1",)
