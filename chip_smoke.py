@@ -1,20 +1,20 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's hybrid search on one NVIDIA card and check it.
 
-    python3 chip_smoke.py            # all phases (one card, ~4 min)
+    python3 chip_smoke.py            # all phases (one card, ~5 min)
     python3 chip_smoke.py --quick    # build + kernel-vs-twin checks only
     python3 chip_smoke.py --profile  # all phases, and a profile of each path
 
 Phases, one line of output each (any failed check raises, exit code != 0),
 run in the order 1, 2, 3, 6, 7, 10 (the kernel checks; ``--quick`` stops
-there), then 4, 5, 12, 13, 8, 9, 11, 14, 15 (the paths):
+there), then 4, 5, 12, 13, 8, 9, 11, 14, 15, 16 (the paths):
 
 1. environment: the card, torch and CUDA versions, the kernel build (nvcc,
    ``openintel_tpu_torch/csrc``) and the C++ query planner;
 2. kernel A (``csrc/i8_top2g_tma.cu``, TMA + wgmma, two stages) and its
    A/B control, the ``mma.sync`` kernel of ``csrc/i8_top2g.cu``, against
    their plain twin:
-   candidate cells bit-identical over groups {1, 2, auto}, both step
+   candidate cells bit-identical over groups {1, 2, auto, 5}, both step
    widths, padding;
 3. kernel B (``csrc/fused_topk_v2.cu``, its ``cp.async`` ring) and its A/B
    controls, the first version (``csrc/fused_topk.cu``) and, for bf16 at
@@ -95,7 +95,32 @@ there), then 4, 5, 12, 13, 8, 9, 11, 14, 15 (the paths):
    max_wait_ms=2.0)``: each caller's first and last result equal to a
    direct search of its strings (near-tie rule), ``batches_run``,
    ``queries_run``, queries a second, the callers' p50 and p99 latency and
-   the waves' sizes and search times.
+   the waves' sizes and search times;
+16. filtered search (``filter_mask``, ``filter_group``) on phase 4's corpus
+   and queries through phase 14's int8 retriever: masks of 50, 10, 5 and
+   1 % (``c_fetch`` 64 or 128, 512, 1,024, 1,024): each sub-batch's
+   over-fetched dense pool, before the compaction, bit-identical to its
+   plain pool (at 1 % every pool starves and both results are the
+   fallback's, so the pools are what hold kernel A there), each result
+   bit-identical to the filtered plain-twin path, no masked id, recall@10
+   against the exact
+   filtered hybrid (masked exact dense arm over the stored rows, f32
+   queries, the same mask-aware plan and fusion) >= 0.95, the step beside
+   the unfiltered step, the masked ``prepare`` per query, the starved rows
+   and their fallback's time, kernel A once per sub-batch; kernel A at
+   group 5 (1,024 candidates) against its twin and v1 and the rescore of
+   1,024 candidates timed; an include-list of 20 docs and a 0.01 % mask,
+   every pool starved, equal to the exact filtered hybrid; 4 mask rows
+   round-robin over the queries, each query equal to a single-mask search
+   of its row; the fast (kernel D) and int4 (E2) arms and the small
+   corpus's pallas arm (B, 98,304 docs) at 50, 5 and 1 %, each pool (D at
+   k up to 1,024, E2 at a fetch of 4,096, B at k = 1,024) against its
+   plain pool and each result against its plain path (phases 3, 8, 9 and
+   12's rules) with no masked id; a
+   ``PipelinedSearcher`` stream of unfiltered, single-mask and grouped
+   waves, each equal to the sequential path; and 8 ``BatchCoalescer``
+   callers (two tenant masks, two callers each, and 4 unfiltered) for 2 s,
+   each equal to a direct search at its wave's width and masks.
 
 Each path runs in its own counted window: the kernel launch counts are
 zeroed just before it and read just after, and each kernel of the path
@@ -111,7 +136,12 @@ windows); the last line
 is ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits non-zero and
 prints no result.
 
-With ``--profile``, phases 4, 8, 9 and 12 (each store) add a ``profile`` line:
+The records of kernels A, B, D and E2 carry phase 16's launches
+(``filtered_launches``), and A's its time at group 5 and the filtered
+path's numbers.
+
+With ``--profile``, phases 4, 8, 9, 12 (each store) and 16 (each int8
+mask) add a ``profile`` line:
 ``torch.profiler`` over 3 runs of the path's sub-batches gives the device
 time per sub-batch, the largest kernels, the launches per sub-batch and the
 device's busy share of the profiled wall time (a floor: the profiler slows
@@ -140,11 +170,21 @@ from openintel_tpu_torch.index.synthetic import (
     synthetic_queries_from_docs,
     synthetic_token_corpus,
 )
-from openintel_tpu_torch.models.retrievers import HybridRetriever, dense_arm_topk
+from openintel_tpu_torch.models.retrievers import (
+    HybridRetriever,
+    dense_arm_topk,
+    filtered_fetch_width,
+    make_filter_mask,
+    starved_rows,
+)
 from openintel_tpu_torch.ops import _kernels
 from openintel_tpu_torch.ops import dense_topk as T
 from openintel_tpu_torch.ops.bm25 import bm25_topk_device, encode_query
-from openintel_tpu_torch.ops.dense import dense_topk_xla, require_true_f32
+from openintel_tpu_torch.ops.dense import (
+    dense_topk_xla,
+    dense_topk_xla_masked,
+    require_true_f32,
+)
 from openintel_tpu_torch.serving import BatchCoalescer, PipelinedSearcher
 from openintel_tpu_torch.tools import common, grouped_ab, kernel_decomp, topk_reduce_ab
 
@@ -174,6 +214,13 @@ PEAK_OPS_PER_S = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 AB_ROUNDS, AB_REPS = 5, 10  # redesigned kernel vs its control: rounds x launches
 WAVES = 8  # phase 14: waves of N_BATCHES sub-batches of BATCH queries
 CALLERS, CALLER_QUERIES, COALESCE_S = 8, 64, 5.0  # phase 15: callers, queries a call, seconds
+# phase 16's masks: at 5 % the fetch is 1,024 (group 5 at 1.25M docs) with
+# ~51 expected survivors against c = 32, so the compared results come
+# through the kernels; at 1 % every pool starves and the fallback serves
+SELECTIVITIES = (0.5, 0.1, 0.05, 0.01)
+ARM_SELECTIVITIES = (("50 %", 0.5), ("5 %", 0.05), ("1 %", 0.01))
+INCLUDE_DOCS = 20  # phase 16: an include-list too small for any dense pool
+FILTER_CALL_S = 2.0  # phase 16: seconds of coalesced filtered callers
 
 
 def log(msg: str) -> None:
@@ -255,15 +302,16 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def ab_rounds(new, old, rounds: int = AB_ROUNDS, reps: int = AB_REPS):
+def ab_rounds(new, old, rounds: int = AB_ROUNDS, reps: int = AB_REPS, timer=cuda_ms):
     """A/B timing in one call: ``rounds`` rounds, each timing ``reps``
     launches of the new kernel and of its control back to back (the order
-    flips every round). Returns (new ms per round, control ms per round)."""
+    flips every round) with ``timer(fn, reps)``. Returns (new ms per round,
+    control ms per round)."""
     new_ms, old_ms = [], []
     for r in range(rounds):
         pair = ((new, new_ms), (old, old_ms))
         for fn, out in pair if r % 2 == 0 else pair[::-1]:
-            out.append(cuda_ms(fn, reps))
+            out.append(timer(fn, reps))
     return new_ms, old_ms
 
 
@@ -333,7 +381,9 @@ def phase_environment() -> dict:
 def phase_kernel_a() -> None:
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
-    n_super = 17  # groups 1, 2 and auto (3): the last group short
+    # groups 1, 2, auto (3) and 5 (the filtered path's group at 1.25M docs,
+    # 77 supers in groups of 5: here too the last group holds 2 supers)
+    n_super = 17
     n = (n_super - 1) * T._TURBO_UNIT + 5_000  # the last super short too
     b = 45  # pads to 64 queries
     emb = torch.from_numpy(unit_rows(rng, n, DIM)).to(dev)
@@ -347,7 +397,7 @@ def phase_kernel_a() -> None:
     cases = 0
     for crp, q in ((corpus, q8), (tie_corpus, tie_q)):
         q_pad = torch.cat([q, q.new_zeros((64 - b, DIM))])
-        for group in (1, 2, T.auto_i8_group(n, C_ARM)):
+        for group in (1, 2, T.auto_i8_group(n, C_ARM), 5):
             for block_c in (4096, 8192):
                 sub = block_c // 128
                 want = T.i8_top2g_cells_plain(q_pad, crp, group=group, sub=sub)
@@ -374,7 +424,7 @@ def phase_kernel_a() -> None:
                 cases += 1
     torch.cuda.synchronize()
     log(
-        f"phase2 kernel A: {cases} cases (groups 1/2/auto, block_c 4096/8192, "
+        f"phase2 kernel A: {cases} cases (groups 1/2/auto/5, block_c 4096/8192, "
         f"N={n}, B={b}, D={DIM}, random and tie-heavy) cells and decode "
         "bit-identical to the twin, for the TMA + wgmma kernel and the v1 control"
     )
@@ -1105,12 +1155,17 @@ def phase_small_path(corpus, card, profile: bool) -> tuple[dict, dict]:
     return shapes, windows
 
 
-def exact_scores(retr, prep, rows, q32):
-    """The exact path's fused (scores, ids), for the near-tie rule."""
+def exact_scores(retr, prep, rows, q32, mask=None):
+    """The exact path's fused (scores, ids), for the near-tie rule; with
+    ``mask`` (an (n_docs,) bool tensor), the exact filtered hybrid: the
+    masked exact dense arm and ``prep``'s mask-aware plan."""
     out_v, out_i = [], []
     c = prep.candidates_per_arm
     for i in range(prep.queries.shape[0]):
-        d_vals, d_ids = dense_topk_xla(rows, q32[i], c)
+        if mask is None:
+            d_vals, d_ids = dense_topk_xla(rows, q32[i], c)
+        else:
+            d_vals, d_ids = dense_topk_xla_masked(rows, q32[i], mask, c)
         b_vals, b_ids = bm25_topk_device(
             prep.plan_doc_ids[i], prep.plan_weights[i], retr.n_docs, c,
             presorted=prep.presorted, max_run=prep.max_run,
@@ -1189,14 +1244,17 @@ def phase_misfit_width(card) -> None:
     )
 
 
-def dense_arms(retr, prep, plain: bool):
-    """Each sub-batch's dense arm, as ``run_prepared_device`` runs it."""
+def dense_arms(retr, prep, plain: bool, keep=None):
+    """Each sub-batch's dense arm, as ``run_prepared_device`` runs it (for
+    a filtered batch its over-fetched pool, before the compaction); with
+    ``keep``, that many of the rescored candidates (int4: its whole fetch)."""
     dense = retr.dense
+    width = prep.c_fetch or prep.candidates_per_arm
     return [
         dense_arm_topk(
-            dense.kernel, dense._emb_device, prep.queries[i], prep.candidates_per_arm,
+            dense.kernel, dense._emb_device, prep.queries[i], keep or width,
             n_docs=retr.n_docs, block_c=retr._dense_block_c(BATCH),
-            candidates=prep.candidates_per_arm, rescore_op=dense._rescore_emb,
+            candidates=width, rescore_op=dense._rescore_emb,
             q8=prep.queries_i8[i], plain=plain,
         )
         for i in range(prep.queries.shape[0])
@@ -1664,6 +1722,445 @@ def phase_coalesced(retr, card) -> None:
     )
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: filtered search
+# ---------------------------------------------------------------------------
+
+
+def no_masked_ids(res, mask: np.ndarray, rows=slice(None)) -> None:
+    ids = res.ids[rows]
+    if not mask[ids[ids >= 0]].all():
+        raise AssertionError("a masked doc was returned")
+
+
+def same_result(a, b) -> bool:
+    return bool(np.array_equal(a.ids, b.ids) and np.array_equal(a.scores, b.scores))
+
+
+def synced_ms(fn, reps: int = 1) -> float:
+    """Milliseconds per call of ``fn`` on the host clock, the device synced
+    before and after ``reps`` calls (a path with host work and copies)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / reps
+
+
+def paired_medians(fa, fb, rounds: int) -> tuple[float, float]:
+    """Median synced ms of ``fa`` and of ``fb``, timed in turns by
+    ``ab_rounds`` after a warm call of each."""
+    fa(), fb()
+    ta, tb = ab_rounds(fa, fb, rounds=rounds, reps=1, timer=synced_ms)
+    return statistics.median(ta), statistics.median(tb)
+
+
+def prepare_timed(retr, term_ids, q, **kw):
+    """``prepare`` and its ms per query (host plan, quantise, staging)."""
+    out = []
+    ms = synced_ms(
+        lambda: out.append(retr.prepare(term_ids, q, k=K, candidates_per_arm=C_ARM, **kw))
+    )
+    return out[0], ms / len(term_ids)
+
+
+def fallback_ms(retr, prep, starved) -> float:
+    """Milliseconds of the exact masked fallback for ``starved`` rows, per
+    distinct mask group among them."""
+    if not starved.size:
+        return 0.0
+    n_groups = len(np.unique(prep.filter_group_host.reshape(-1)[starved]))
+    return synced_ms(lambda: retr._filtered_fallback(prep, starved)) / n_groups
+
+
+def filtered_int8(retr, corpus, masks, card, profile: bool) -> dict:
+    """Phase 16's int8 selectivities on phase 4's queries: the filtered path
+    against its plain path (bit for bit) and the exact filtered hybrid
+    (recall@10), its step beside the unfiltered step, the masked
+    ``prepare``, the starved rows and their fallback."""
+    _, _, term_ids, q, _ = corpus
+    unf = retr.prepare(term_ids, q, k=K, candidates_per_arm=C_ARM)
+    rows, q32 = retr.dense._rescore_emb, f32_queries(corpus, unf)
+    out = {}
+    for name, mask in masks.items():
+        prep, prep_ms = prepare_timed(retr, term_ids, q, filter_mask=mask)
+        # ceil(c / selectivity) passes 64 when a "50 %" mask keeps a doc
+        # under half: the width doubles
+        if prep.c_fetch != filtered_fetch_width(C_ARM, N_DOCS, int(mask.sum())):
+            raise AssertionError(f"{name}: c_fetch {prep.c_fetch}, not the rule's")
+        (res, first_s), counts = counted(lambda: drive(retr, prep))
+        expect_launches(counts, i8_top2g=N_BATCHES)
+        check_result(res)
+        if not same_result(res, plain_result(retr, prep)):
+            raise AssertionError(f"{name}: the filtered int8 path differs from its plain path")
+        no_masked_ids(res, mask)
+        pool_rule, _ = check_pools(retr, prep, f"int8 {name}")
+        mask_dev = torch.from_numpy(mask).cuda()
+        recall = recall_at_k(res.ids, exact_scores(retr, prep, rows, q32, mask_dev)[1])
+        starved = starved_rows(prep, retr.run_prepared_device(prep)[2].cpu().numpy())
+        per_batch, unf_ms = (
+            ms / N_BATCHES
+            for ms in paired_medians(
+                lambda: retr.run_prepared_device(prep), lambda: retr.run_prepared_device(unf), 8
+            )
+        )
+        search_ms, unf_search_ms = paired_medians(
+            lambda: drive(retr, prep), lambda: drive(retr, unf), 4
+        )
+        fb_ms = fallback_ms(retr, prep, starved)
+        log(
+            f"phase16 int8 {name} mask ({int(mask.sum())} docs): c_fetch {prep.c_fetch} "
+            f"(group {T.auto_i8_group(N_DOCS, prep.c_fetch)}), kernel A launches "
+            f"{counts['i8_top2g']}, {pool_rule}, results equal to the plain path, no masked "
+            f"id; recall@{K} vs the "
+            f"exact filtered hybrid {recall:.4f}; step per sub-batch (B={BATCH}, in turns "
+            f"with the unfiltered step, medians of 8) {per_batch:.3f} ms against "
+            f"{unf_ms:.3f} ms (ratio {per_batch / unf_ms:.3f}); masked prepare "
+            f"{prep_ms * 1e3:.1f} us a query; {starved.size} of {prep.n_queries} rows "
+            f"starved, their fallback {fb_ms:.1f} ms; whole search of {prep.n_queries} "
+            f"(step, copy, fallback; medians of 4 in turns) {search_ms:.1f} ms against "
+            f"{unf_search_ms:.1f} ms unfiltered (ratio {search_ms / unf_search_ms:.3f}), "
+            f"first run {first_s * 1e3:.1f} ms [{card}]"
+        )
+        if recall < RECALL_FLOOR:
+            raise AssertionError(f"filtered recall@{K} {recall:.4f} < {RECALL_FLOOR}")
+        if profile:
+            log(f"profile int8 {name} mask: {profile_step(retr, prep)} [{card}]")
+        out[name] = {
+            "c_fetch": prep.c_fetch, "launches": counts["i8_top2g"], "recall": recall,
+            "step_ms": per_batch, "unfiltered_step_ms": unf_ms, "prepare_us": prep_ms * 1e3,
+            "starved": int(starved.size), "fallback_ms": fb_ms, "search_ms": search_ms,
+            "unfiltered_search_ms": unf_search_ms,
+        }
+        if prep.c_fetch == T._FUSED_MAX_K and "a_group5" not in out:
+            out["a_group5"] = kernel_a_group5(retr, prep, card)
+    return out
+
+
+def kernel_a_group5(retr, prep, card) -> dict:
+    """Kernel A at the filtered path's widest fetch (1,024 candidates,
+    group 5: 16 groups, 4,096 columns) against its twin and v1, and the
+    exact rescore of the 1,024 candidates, timed."""
+    q8 = prep.queries_i8[0].contiguous()
+    emb = retr.dense._emb_device
+    group = T.auto_i8_group(N_DOCS, prep.c_fetch)
+    sub = retr._dense_block_c(BATCH) // 128
+    got = T.i8_top2g_cells(q8, emb, group=group, sub=sub)
+    want = T.i8_top2g_cells_plain(q8, emb, group=group, sub=sub)
+    if group != 5 or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"kernel A at group {group} differs from its twin")
+    new_ms, old_ms = ab_rounds(
+        lambda: T.i8_top2g_cells(q8, emb, group=group, sub=sub),
+        lambda: T.i8_top2g_cells_v1(q8, emb, group=group, sub=sub),
+    )
+    _, cids = T.dense_topk_fast_i8_grouped(
+        emb, prep.queries_i8[0], k=prep.c_fetch, n_docs=N_DOCS, group=group,
+        block_c=retr._dense_block_c(BATCH),
+    )
+    rows, q32 = retr.dense._rescore_emb, prep.queries[0]
+    rescore_ms = cuda_ms(lambda: T.exact_rescore(rows, q32, cids, prep.c_fetch), 10)
+    gathered = cids.numel() * rows.shape[1] * rows.element_size()
+    log(
+        f"kernel A at group {group} (N={N_DOCS}, {2 * got[0].shape[1]} key columns, "
+        f"k={prep.c_fetch}): cells bit-identical to the twin; {ab_line(new_ms, old_ms)}; "
+        f"exact rescore of {cids.shape[1]} candidates a query: {rescore_ms:.3f} ms a "
+        f"sub-batch, {gathered / 1e6:.1f} MB of rows gathered ({gathered / rescore_ms / 1e6:.1f} "
+        f"GB/s) [{card}]"
+    )
+    return {
+        "ms": statistics.median(new_ms), "v1_ms": statistics.median(old_ms),
+        "rescore_ms": rescore_ms,
+    }
+
+
+def filtered_starvation(retr, corpus, masks, card) -> dict:
+    """Masks too small for any pool: every real row of the include-list
+    starves, the fallback serves it, and the result equals the exact
+    filtered hybrid (near-tie rule)."""
+    _, _, term_ids, q, _ = corpus
+    rows = retr.dense._rescore_emb
+    out = {}
+    for name, mask in masks.items():
+        prep, _ = prepare_timed(retr, term_ids, q, filter_mask=mask)
+        starved = starved_rows(prep, retr.run_prepared_device(prep)[2].cpu().numpy())
+        if name == "include-list" and starved.size != prep.n_queries:
+            raise AssertionError(f"{name}: {starved.size} of {prep.n_queries} rows starved")
+        (res, _), counts = counted(lambda: drive(retr, prep))
+        expect_launches(counts, i8_top2g=N_BATCHES)
+        no_masked_ids(res, mask)
+        ev, ei = exact_scores(
+            retr, prep, rows, f32_queries(corpus, prep), torch.from_numpy(mask).cuda()
+        )
+        swaps = near_tie_check(res.scores, res.ids, ev, ei)
+        fb_ms = fallback_ms(retr, prep, starved)
+        log(
+            f"phase16 starvation, {name} ({int(mask.sum())} docs): c_fetch {prep.c_fetch}, "
+            f"{starved.size} of {prep.n_queries} rows starved (survivors < min(c, unmasked)); "
+            f"results equal to the exact filtered hybrid ({swaps} near-tie swaps); fallback "
+            f"{fb_ms:.1f} ms per starved group [{card}]"
+        )
+        out[name] = {"starved": int(starved.size), "fallback_ms": fb_ms}
+    return out
+
+
+def filtered_groups(retr, corpus, masks, card) -> None:
+    """Per-query groups: G mask rows round-robin over phase 4's queries;
+    each query equals a single-mask search with its own row at the grouped
+    batch's fetch width (near-tie rule)."""
+    _, _, term_ids, q, _ = corpus
+    groups = np.arange(len(term_ids), dtype=np.int32) % masks.shape[0]
+    prep, prep_ms = prepare_timed(retr, term_ids, q, filter_mask=masks, filter_group=groups)
+    if prep.c_fetch != T._FUSED_MAX_K:
+        raise AssertionError(f"grouped c_fetch {prep.c_fetch}, expected {T._FUSED_MAX_K}")
+    (res, first_s), counts = counted(lambda: drive(retr, prep))
+    expect_launches(counts, i8_top2g=N_BATCHES)
+    swaps = 0
+    for g in range(masks.shape[0]):
+        sel = np.flatnonzero(groups == g)
+        one = retr.prepare(
+            [term_ids[i] for i in sel], q[sel], k=K, candidates_per_arm=C_ARM,
+            filter_mask=masks[g],
+        )
+        one.c_fetch = prep.c_fetch  # the grouped batch's width, sized by its most selective row
+        ref = retr.run_prepared(one)
+        swaps += near_tie_check(res.scores[sel], res.ids[sel], ref.scores, ref.ids, atol=TIE)
+        no_masked_ids(res, masks[g], sel)
+    log(
+        f"phase16 per-query groups: G={masks.shape[0]} rows (unmasked "
+        f"{', '.join(str(int(m.sum())) for m in masks)}) round-robin over "
+        f"{len(term_ids)} queries, c_fetch {prep.c_fetch}, kernel A launches "
+        f"{counts['i8_top2g']}; each query equal to a single-mask search of its own "
+        f"row ({swaps} near-tie swaps); masked prepare {prep_ms * 1e3:.1f} us a query, "
+        f"search {first_s * 1e3:.1f} ms [{card}]"
+    )
+
+
+def check_pools(retr, prep, label) -> tuple[str, np.ndarray]:
+    """Each sub-batch's over-fetched dense pool, before the compaction,
+    against its plain pool, so a starved query (whose result is the
+    fallback's on both sides) still holds the kernel at ``c_fetch``:
+    ``int8`` and ``int4`` bit for bit (int4: all of E2's wider fetch,
+    rescored), ``pallas`` by phase 3's rule for kernel B, ``fast`` within
+    one score step. Returns the rule's words and, per query, whether the
+    pools are equal."""
+    width = prep.c_fetch
+    if retr.kernel == "int4":
+        width = min(max(4 * width, 256), retr.n_docs)
+    swaps, same = 0, []
+    arms = (dense_arms(retr, prep, plain, keep=width) for plain in (False, True))
+    for (kv, ki), (pv, pi) in zip(*arms):
+        kv, ki, pv, pi = (t.cpu() for t in (kv, ki, pv, pi))
+        if retr.kernel == "fast":
+            swaps += near_tie_check(kv, ki, pv, pi, tie=STEP, atol=STEP)
+        elif retr.kernel == "pallas":
+            swaps += near_tie_check(kv, ki, pv, pi, atol=ATOL)
+        elif not (torch.equal(kv, pv) and torch.equal(ki, pi)):
+            raise AssertionError(f"{label}: the {retr.kernel} pool differs from its plain pool")
+        same.append(((ki == pi) & (kv == pv)).all(dim=1).numpy())
+    rule = "bit for bit" if retr.kernel in ("int8", "int4") else f"{swaps} near-tie swaps"
+    what = "E2's fetches" if retr.kernel == "int4" else "pools"
+    return f"{what} of {width} before the compaction equal to the plain ones ({rule})", (
+        np.concatenate(same)[: prep.n_queries]
+    )
+
+
+def filtered_arm(retr, term_ids, q, mask, counter, card, label) -> int:
+    """One filtered arm on the card against its plain path: the pools by
+    ``check_pools``, then the results: ``int4`` bit for bit, ``fast`` by
+    phase 8's rule (equal wherever the pools are equal), ``pallas`` by
+    phase 12's near-tie rule. Returns the kernel's launches."""
+    prep, _ = prepare_timed(retr, term_ids, q, filter_mask=mask)
+    (res, _), counts = counted(lambda: drive(retr, prep))
+    expect_launches(counts, **{counter: N_BATCHES})
+    no_masked_ids(res, mask)
+    plain = plain_result(retr, prep)
+    pools, same = check_pools(retr, prep, label)
+    if retr.kernel == "int4":
+        if not same_result(res, plain):
+            raise AssertionError(f"{label}: the filtered int4 path differs from its plain path")
+        rule = "results equal to the plain path"
+    elif retr.kernel == "fast":
+        if not (
+            np.array_equal(res.ids[same], plain.ids[same])
+            and np.array_equal(res.scores[same], plain.scores[same])
+        ):
+            raise AssertionError(f"{label}: results differ where the dense pools are equal")
+        rule = f"results equal on the {int(same.sum())} queries whose pools are equal"
+    else:
+        swaps = near_tie_check(res.scores, res.ids, plain.scores, plain.ids)
+        rule = f"results: {swaps} near-tie swaps against the plain path"
+    starved = starved_rows(prep, retr.run_prepared_device(prep)[2].cpu().numpy())
+    log(
+        f"phase16 {label}: c_fetch {prep.c_fetch}, {counter} launches {counts[counter]}, "
+        f"{pools}; {rule}; no masked id; {starved.size} of {prep.n_queries} rows starved "
+        f"[{card}]"
+    )
+    return counts[counter]
+
+
+def filtered_serving(retr, corpus, masks, groups_masks, card) -> None:
+    """A ``PipelinedSearcher`` stream of unfiltered, single-mask and grouped
+    waves, each equal to the sequential path bit for bit."""
+    emb = corpus[4]
+    rng = np.random.default_rng(161)
+    n = N_BATCHES * BATCH
+    groups = np.arange(n, dtype=np.int32) % groups_masks.shape[0]
+    filters = [
+        {}, {"filter_mask": masks["50 %"]},
+        {"filter_mask": groups_masks, "filter_group": groups},
+        {}, {"filter_mask": masks["1 %"]},
+        {"filter_mask": groups_masks, "filter_group": groups},
+    ]
+    stream = [(*wave(emb, rng, n), f) for f in filters]
+    kw = {"k": K, "candidates_per_arm": C_ARM}
+    want = [retr.run_prepared(retr.prepare(t, e, **f, **kw)) for t, e, f in stream]
+    pipe = PipelinedSearcher(retr, depth=2)
+    t0 = time.perf_counter()
+    got, counts = counted(lambda: list(pipe.run_prepared_stream(iter(stream), **kw)))
+    elapsed = time.perf_counter() - t0
+    expect_launches(counts, i8_top2g=len(stream) * N_BATCHES)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not same_result(g, w):
+            raise AssertionError(f"pipelined filtered stream: wave {i} differs from sequential")
+    log(
+        f"phase16 pipelined: {len(stream)} waves of {N_BATCHES} x {BATCH} (unfiltered, 50 %, "
+        f"grouped G={groups_masks.shape[0]}, unfiltered, 1 %, grouped) in {elapsed:.3f} s, each "
+        f"equal to the sequential path, kernel A launches {counts['i8_top2g']}; finalize "
+        f"(copy wait and fallback) per wave median "
+        f"{ms_median(pipe.stage_seconds['finalize']):.1f} ms [{card}]"
+    )
+
+
+def filtered_coalesced(retr, tenants, card) -> None:
+    """CALLERS callers through ``BatchCoalescer(max_batch=BATCH)`` for
+    FILTER_CALL_S seconds, the first four with two tenant masks, the rest
+    unfiltered. Each caller's first and last result equals a direct search
+    of its strings at its wave's width, with its wave's masks: its own
+    rows in its own group, the padding rows in the wave's most selective
+    group, so the fetch width is the wave's (near-tie rule)."""
+    waves = {}  # id of a wave's first query string -> (queries, masks, groups)
+    where = {}  # id of a query string -> (that wave's key, row)
+    lock = threading.Lock()
+
+    def search_fn(queries, k, **filters):
+        res = retr.search(queries, k=k, candidates_per_arm=C_ARM, **filters)
+        with lock:
+            waves[id(queries[0])] = (
+                queries, filters.get("filter_mask"), filters.get("filter_group")
+            )
+            where.update((id(s), (id(queries[0]), r)) for r, s in enumerate(queries))
+        return res
+
+    co = BatchCoalescer(search_fn, max_batch=BATCH, max_wait_ms=2.0)
+    names = list(tenants) * 2 + [None] * (CALLERS - 2 * len(tenants))
+    calls = [[] for _ in range(CALLERS)]
+    errors = []
+    start = time.perf_counter()
+
+    def caller(c):
+        rng = np.random.default_rng(300 + c)
+        entry = None if names[c] is None else ((names[c],), tenants[names[c]])
+        try:
+            while time.perf_counter() - start < FILTER_CALL_S:
+                strings = [
+                    " ".join(f"t{r}" for r in row) for row in term_ranks(rng, CALLER_QUERIES)
+                ]
+                filters = None if entry is None else [entry] * len(strings)
+                res = co.search(strings, k=K, filters=filters)
+                calls[c].append((strings, res))
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=caller, args=(c,)) for c in range(CALLERS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    swaps, mixed = 0, 0
+    for c, made in enumerate(calls):
+        for strings, res in (made[0], made[-1]):
+            key, row = where[id(strings[0])]
+            queries, masks, groups = waves[key]
+            pad = [""] * (len(queries) - len(strings))
+            if masks is None:
+                ref = retr.search(strings + pad, k=K, candidates_per_arm=C_ARM)
+            else:
+                mixed += 1
+                present = np.unique(groups)
+                tightest = present[np.argmin(masks[present].sum(axis=1))]
+                own = groups[row : row + len(strings)]
+                ref = retr.search(
+                    strings + pad, k=K, candidates_per_arm=C_ARM, filter_mask=masks,
+                    filter_group=np.concatenate([own, np.full(len(pad), tightest, np.int32)]),
+                )
+            n = len(strings)
+            swaps += near_tie_check(res.scores, res.ids, ref.scores[:n], ref.ids[:n], atol=TIE)
+            if names[c] is not None:
+                no_masked_ids(res, tenants[names[c]])
+    n_calls = sum(len(m) for m in calls)
+    log(
+        f"phase16 coalesced: {CALLERS} callers ({len(tenants)} tenant masks x 2 callers, "
+        f"{CALLERS - 2 * len(tenants)} unfiltered) x {CALLER_QUERIES} strings for "
+        f"{FILTER_CALL_S:.0f} s: {n_calls} calls in {co.batches_run} waves "
+        f"({len([w for w in waves.values() if w[1] is not None])} filtered); each caller's first "
+        f"and last result equal to a direct search at its wave's width and masks ({mixed} "
+        f"of them filtered, {swaps} near-tie swaps), no masked id [{card}]"
+    )
+
+
+def phase_filtered(corpus, retr, card, profile: bool) -> dict:
+    """Phase 16: filtered search on the card (ROADMAP item 7b), on phase 4's
+    corpus and queries through phase 14's int8 retriever, then the fast and
+    int4 arms on the same corpus and the pallas arm on phase 12's. Returns
+    the filtered launches (and kernel A's time at group 5) for the
+    ``kernels`` line."""
+    rng = np.random.default_rng(16)
+    picks = {p: rng.random(N_DOCS) < p for p in SELECTIVITIES}
+    masks = {f"{p:.0%}".replace("%", " %"): picks[p] for p in SELECTIVITIES}
+    include = make_filter_mask(N_DOCS, include_ids=rng.choice(N_DOCS, INCLUDE_DOCS, replace=False))
+    int8 = filtered_int8(retr, corpus, masks, card, profile)
+    starve = filtered_starvation(
+        retr, corpus, {"include-list": include, "0.01 %": rng.random(N_DOCS) < 1e-4}, card
+    )
+    grouped = np.stack([np.ones(N_DOCS, bool), picks[0.5], picks[0.1], include])
+    filtered_groups(retr, corpus, grouped, card)
+    filtered_serving(retr, corpus, masks, grouped, card)
+    filtered_coalesced(retr, {"tenant-a": picks[0.5], "tenant-b": picks[0.1]}, card)
+    index, dense, term_ids, q, _ = corpus
+    launches = {"i8_top2g": {n: int8[n]["launches"] for n in masks}}
+    for kernel, counter in (("fast", "turbo_f32"), ("int4", "turbo_i4_top2")):
+        arm = HybridRetriever(index, dense, kernel=kernel, device="cuda", device_batch=BATCH)
+        launches[counter] = {
+            name: filtered_arm(arm, term_ids, q, picks[p], counter, card, f"{kernel} {name}")
+            for name, p in ARM_SELECTIVITIES
+        }
+        del arm
+        free_device()
+    s_index, s_emb, s_terms, s_q = small_corpus(corpus)
+    small = HybridRetriever(
+        s_index, DenseIndex.from_embeddings(s_emb, dtype=torch.bfloat16), device="cuda",
+        device_batch=BATCH,
+    )
+    if small.kernel != "pallas":
+        raise AssertionError(f"auto-select gave {small.kernel}, not pallas")
+    launches["fused_topk"] = {
+        name: filtered_arm(
+            small, s_terms, s_q, rng.random(SMALL_DOCS) < p, "fused_topk", card, f"pallas {name}"
+        )
+        for name, p in ARM_SELECTIVITIES
+    }
+    extra = {name: {"filtered_launches": n} for name, n in launches.items()}
+    extra["i8_top2g"]["group5"] = int8["a_group5"]
+    extra["i8_top2g"]["filtered"] = {
+        n: {k: v for k, v in int8[n].items() if k != "launches"} for n in masks
+    }
+    extra["i8_top2g"]["starvation"] = starve
+    return extra
+
+
 def run(quick: bool, profile: bool) -> None:
     env = phase_environment()
     card = env["card"]
@@ -1673,7 +2170,7 @@ def run(quick: bool, profile: bool) -> None:
     phase_kernel_e()
     phase_kernel_c_s()
     if quick:
-        log("quick run: the paths (phases 4, 5, 12, 13, 8, 9, 11, 14, 15) skipped")
+        log("quick run: the paths (phases 4, 5, 12, 13, 8, 9, 11, 14, 15, 16) skipped")
         return
 
     corpus = build_corpus()
@@ -1694,8 +2191,11 @@ def run(quick: bool, profile: bool) -> None:
     free_device()
     retr = phase_pipelined(corpus, card)
     phase_coalesced(retr, card)
+    filtered = phase_filtered(corpus, retr, card, profile)
     del retr
     free_device()
+    for entry in kernels:
+        entry.update(filtered.get(entry["name"], {}))
 
     leaked = sorted(
         m for m in sys.modules

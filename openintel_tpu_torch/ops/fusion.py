@@ -6,6 +6,9 @@ formulation: candidates are the concatenated id lists, per-list
 contributions come from an equality match against the lists, duplicates
 keep their first occurrence, and the final order is (-fused, doc id) with
 ties to the lower doc id. Rankings pad with (0.0, -1).
+
+The filtered step's rank compaction (``mask_compact_ranked``,
+``mask_compact_ranked_vals``) lives here too, as in the reference.
 """
 
 from __future__ import annotations
@@ -20,6 +23,57 @@ RRF_K = 60.0
 BLEND_ALPHA = 0.7
 _Z_EPS = 1e-6
 NEG_INF = float("-inf")
+
+
+def _compact_order(keep: torch.Tensor) -> torch.Tensor:
+    """(B, C) column order that puts the kept entries first, each part in
+    its rank order: the sort keys ``pos`` (kept) and ``C + pos`` (the
+    rest) are distinct, so the order is the reference's stable sort."""
+    cw = keep.shape[1]
+    pos = torch.arange(cw, device=keep.device)[None, :]
+    return torch.argsort(torch.where(keep, pos, cw + pos), dim=1)
+
+
+def _fit_columns(x: torch.Tensor, c: int, fill) -> torch.Tensor:
+    """The first ``c`` columns of ``x``, padded with ``fill`` when fewer."""
+    if x.shape[1] < c:
+        x = torch.nn.functional.pad(x, (0, c - x.shape[1]), value=fill)
+    return x[:, :c]
+
+
+def mask_compact_ranked(
+    ids: torch.Tensor,  # (B, C) int32 ranked ids, best first; -1 = padding
+    keep: torch.Tensor,  # (B, C) bool; False entries are filtered out
+    c: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stable-compact the surviving entries of ranked id lists. Returns
+    ((B, c) ids: the survivors in their rank order, -1 padded; (B,) int32
+    survivor counts). Filtering cannot reorder survivors, so when at least
+    c survive, the first c are exactly the filtered top-c of the pool."""
+    order = _compact_order(keep)
+    kept = torch.where(keep, ids, torch.full_like(ids, -1))
+    surv = keep.sum(dim=1, dtype=torch.int32)
+    return _fit_columns(torch.gather(kept, 1, order), c, -1), surv
+
+
+def mask_compact_ranked_vals(
+    ids: torch.Tensor,  # (B, C) int32 ranked ids, best first; -1 = padding
+    vals: torch.Tensor,  # (B, C) scores aligned with ids
+    keep: torch.Tensor,  # (B, C) bool; False entries are filtered out
+    c: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`mask_compact_ranked` carrying the scores with their ids.
+    Returns ((B, c) f32 vals, -inf padded; (B, c) ids, -1 padded; (B,)
+    int32 survivor counts)."""
+    order = _compact_order(keep)
+    kept_vals = torch.where(keep, vals.float(), torch.full_like(vals, NEG_INF, dtype=torch.float32))
+    kept_ids = torch.where(keep, ids, torch.full_like(ids, -1))
+    surv = keep.sum(dim=1, dtype=torch.int32)
+    return (
+        _fit_columns(torch.gather(kept_vals, 1, order), c, NEG_INF),
+        _fit_columns(torch.gather(kept_ids, 1, order), c, -1),
+        surv,
+    )
 
 
 def _first_occurrence(cand: torch.Tensor) -> torch.Tensor:

@@ -30,9 +30,10 @@ instead of 1 / sum(stages). On the card that needs more than a thread:
 On the CPU there are no streams or events: each stage runs to its end in
 turn, on the same two threads.
 
-Filtered search is not ported yet: a filtered wave or coalesced request
-reaches ``HybridRetriever``'s ``NotImplementedError``, delivered at the
-wave's position in the stream, or to each caller of the wave.
+Filtered waves serve too: a wave's third element passes ``filter_mask``
+and ``filter_group`` to ``prepare``, and ``finalize_prepared`` patches
+its starved queries on the consumer's stream; coalesced callers' filters
+fuse into one grouped batch (``fuse_filter_entries``).
 """
 
 from __future__ import annotations

@@ -20,7 +20,8 @@ cores), and duplicate rows come out lower id first, exactly. The
 redesigned kernels A, B (bf16: the stream route against the ring), C1, C2,
 D, E1, E2 and S (TMA + wgmma) are also held to their A/B controls (their
 ``mma.sync`` versions) under the same rules. The port's pipelined serving
-on the card equals the sequential path, bit for bit. The hybrid paths at D = 100
+on the card equals the sequential path, bit for bit, filtered waves too;
+every arm's filtered path equals its plain-twin path on dyadic rows. The hybrid paths at D = 100
 and 200 (feature axis zero-padded to 112 and 208) equal their plain-twin
 paths on dyadic rows, for every arm.
 """
@@ -39,7 +40,7 @@ from openintel_tpu_torch.index.synthetic import (
     synthetic_postings_index,
     synthetic_query_embeddings,
 )
-from openintel_tpu_torch.models.retrievers import HybridRetriever
+from openintel_tpu_torch.models.retrievers import HybridRetriever, dense_arm_topk
 from openintel_tpu_torch.ops import dense_topk as T
 from openintel_tpu_torch.ops.dense import require_true_f32
 
@@ -60,7 +61,10 @@ def cuda():
     # chunks (five boxes); 2048: queries streamed with each doc box.
     # block_c 128, 256, 16384: one, two and 128 sub-blocks per step
     [(1, 8192, 128), (2, 4096, 128), (3, 8192, 128), (2, 8192, 32), (3, 4096, 640),
-     (2, 128, 128), (3, 256, 128), (1, 16384, 384), (2, 8192, 2048)],
+     (2, 128, 128), (3, 256, 128), (1, 16384, 384), (2, 8192, 2048),
+     # group 5, the filtered path's at 1.25M docs: here 7 supers, the last
+     # group of 2
+     (5, 8192, 128), (5, 4096, 384)],
 )
 def test_kernel_a_cells_match_twin(cuda, group, block_c, dim):
     """Kernel A (TMA + wgmma, two stages) bit for bit against its twin."""
@@ -262,15 +266,40 @@ def _hybrid_pair(cuda, kernel, emb):
     return HybridRetriever(index, dense, kernel=kernel, device=cuda, device_batch=32)
 
 
-def _run_both(retr, q, counter):
+def _run_both(retr, q, counter, **filters):
     rng = np.random.default_rng(7)
     term_ids = [list(rng.integers(20, 2_000, size=3)) for _ in range(q.shape[0])]
-    prep = retr.prepare(term_ids, q, k=10, candidates_per_arm=32)
+    prep = retr.prepare(term_ids, q, k=10, candidates_per_arm=32, **filters)
     T.reset_launch_counts()
     got = retr.finalize_prepared(prep, retr.run_prepared_device(prep))
     assert T.launch_counts()[counter] == prep.queries.shape[0]
     want = retr.finalize_prepared(prep, retr.run_prepared_device(prep, plain=True))
     return got, want
+
+
+def _assert_pools_equal(retr, q, **filters):
+    """Each sub-batch's over-fetched dense pool, before the compaction,
+    equals its plain pool bit for bit (dyadic rows: every sum exact; int4:
+    all of E2's wider fetch, rescored). A starved query's result is the
+    fallback's on both sides of ``_run_both``, so the pools are what hold
+    the kernel at ``c_fetch``."""
+    term_ids = [[20]] * q.shape[0]
+    prep = retr.prepare(term_ids, q, k=10, candidates_per_arm=32, **filters)
+    dense, width = retr.dense, prep.c_fetch
+    keep = min(max(4 * width, 256), retr.n_docs) if retr.kernel == "int4" else width
+    for i in range(prep.queries.shape[0]):
+        got, want = (
+            dense_arm_topk(
+                dense.kernel, dense._emb_device, prep.queries[i], keep,
+                n_docs=retr.n_docs, block_c=retr._dense_block_c(prep.queries.shape[1]),
+                candidates=width, rescore_op=dense._rescore_emb,
+                q8=prep.queries_i8[i], plain=plain,
+            )
+            for plain in (False, True)
+        )
+        assert got[1].shape[1] == keep
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return prep
 
 
 def test_hybrid_fast_path_matches_twins(cuda):
@@ -576,3 +605,86 @@ def test_hybrid_paths_at_a_misfit_width(cuda, kernel, counter, dim):
     got, want = _run_both(retr, dyadic_rows(rng, 70, dim), counter)
     np.testing.assert_array_equal(got.ids, want.ids)
     np.testing.assert_array_equal(got.scores, want.scores)
+
+
+# c_fetch 64/128, 1,024 (~51 survivors of c = 32) and 1,024 (every pool starves)
+@pytest.mark.parametrize("share", [0.5, 0.05, 0.01])
+@pytest.mark.parametrize(
+    "kernel,counter",
+    [("int8", "i8_top2g"), ("fast", "turbo_f32"), ("int4", "turbo_i4_top2"), ("pallas", "fused_topk")],
+)
+def test_filtered_hybrid_paths_match_twins(cuda, kernel, counter, share):
+    """Filtered batches on the card, every arm: the over-fetched pool
+    (kernel B at k = 1,024 under the 5 and 1 % masks) equal to its plain
+    pool, then the compaction and, where the pool starves, the fallback;
+    the results equal to the plain-twin path on dyadic rows (every sum
+    exact), with no masked id."""
+    rng = np.random.default_rng(61)
+    retr = _hybrid_pair(cuda, kernel, dyadic_rows(rng, 40_000, 64))
+    mask = rng.random(40_000) < share
+    q = dyadic_rows(rng, 70, 64)
+    prep = _assert_pools_equal(retr, q, filter_mask=mask)
+    assert share == 0.5 or prep.c_fetch == 1024
+    got, want = _run_both(retr, q, counter, filter_mask=mask)
+    np.testing.assert_array_equal(got.ids, want.ids)
+    np.testing.assert_array_equal(got.scores, want.scores)
+    assert mask[got.ids[got.ids >= 0]].all()
+
+
+def test_filtered_int8_path_at_group_5(cuda):
+    """67 supers (the last one short) at D = 16 under a 1 % mask: c_fetch
+    1,024 makes kernel A fold groups of 5 (14 groups, the last of 2 supers,
+    as 77 supers at 1.25M docs), 4,096 key columns; the pools equal the
+    plain pools, and the path its plain-twin path, grouped masks too."""
+    n = 66 * T._TURBO_UNIT + 5_000
+    rng = np.random.default_rng(62)
+    retr = _hybrid_pair(cuda, "int8", dyadic_rows(rng, n, 16))
+    assert T.auto_i8_group(n, 1024) == 5
+    q = dyadic_rows(rng, 70, 16)
+    mask = rng.random(n) < 0.01
+    _assert_pools_equal(retr, q, filter_mask=mask)
+    got, want = _run_both(retr, q, "i8_top2g", filter_mask=mask)
+    np.testing.assert_array_equal(got.ids, want.ids)
+    np.testing.assert_array_equal(got.scores, want.scores)
+    assert mask[got.ids[got.ids >= 0]].all()
+    masks = np.stack([np.ones(n, bool), mask])
+    groups = np.arange(70, dtype=np.int32) % 2
+    got, want = _run_both(retr, q, "i8_top2g", filter_mask=masks, filter_group=groups)
+    np.testing.assert_array_equal(got.ids, want.ids)
+    np.testing.assert_array_equal(got.scores, want.scores)
+
+
+def test_filtered_pipelined_serving_on_the_card_matches_sequential(cuda):
+    """Filtered and grouped waves between unfiltered ones in the port's
+    PipelinedSearcher on the card: the masks staged on the producer's
+    stream, the survivor counts back through the pinned copy, the fallback
+    on the consumer's stream; every wave bit-identical to prepare ->
+    run_prepared."""
+    from openintel_tpu_torch.serving import PipelinedSearcher
+
+    n, dim = 3 * T._TURBO_UNIT, 128
+    rng = np.random.default_rng(63)
+    index = synthetic_postings_index(n, vocab_size=2_000, seed=64)
+    emb = synthetic_embeddings(n, dim=dim, seed=65)
+    retr = HybridRetriever(
+        index, DenseIndex.from_embeddings(emb, dtype=torch.bfloat16), kernel="int8",
+        device=cuda, device_batch=64,
+    )
+    masks = np.stack([rng.random(n) < 0.5, rng.random(n) < 0.01, np.zeros(n, bool)])
+    masks[2, rng.choice(n, 20, replace=False)] = True
+    groups = np.arange(128, dtype=np.int32) % 3
+    filters = [{}, {"filter_mask": masks[0]}, {"filter_mask": masks, "filter_group": groups},
+               {"filter_mask": masks[2]}, {}]
+    waves = []
+    for f in filters:
+        term_ids = [list(rng.integers(20, 2_000, size=3)) for _ in range(128)]
+        q = synthetic_query_embeddings(emb, 128, seed=int(rng.integers(1 << 30)))[0]
+        waves.append((term_ids, q, f))
+    kw = {"k": 10, "candidates_per_arm": 32}
+    want = [retr.run_prepared(retr.prepare(t, q, **f, **kw)) for t, q, f in waves]
+    T.reset_launch_counts()
+    got = list(PipelinedSearcher(retr, depth=2).run_prepared_stream(iter(waves), **kw))
+    assert T.launch_counts()["i8_top2g"] == len(waves) * 2
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.ids, w.ids)
+        np.testing.assert_array_equal(g.scores, w.scores)

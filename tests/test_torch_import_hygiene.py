@@ -40,6 +40,7 @@ SLICE = [
     "openintel_tpu_torch.tools.common",
     "openintel_tpu_torch.tools.grouped_ab",
     "openintel_tpu_torch.tools.kernel_decomp",
+    "openintel_tpu_torch.tools.serving_ab",
     "openintel_tpu_torch.tools.topk_reduce_ab",
 ]
 

@@ -212,19 +212,34 @@ def test_auto_select_mirrors_the_reference():
 
 
 def test_unported_paths_raise(corpus):
+    """What the reference refuses, the port refuses: unknown kernels and
+    fusions, and malformed filters on each retriever (same error type and
+    message); a well-formed filter serves, equal to the JAX retriever."""
     index, emb, term_ids, q = corpus
     dense = DenseIndex.from_embeddings(emb[:100])
     with pytest.raises(ValueError):
         tr.DenseRetriever(dense, kernel="nope", device="cpu")
     with pytest.raises(ValueError):
         tr.dense_arm_topk("nope", torch.zeros(1, 1), torch.zeros(1, 1), 1, n_docs=1)
-    t = tr.HybridRetriever.build(["a b", "b c"], dim=8, device="cpu")
-    mask = np.ones(2, bool)
-    with pytest.raises(NotImplementedError, match="filtered"):
-        t.search(["a"], filter_mask=mask)
-    with pytest.raises(NotImplementedError, match="filtered"):
-        t.dense.search(["a"], filter_mask=mask)
-    with pytest.raises(NotImplementedError, match="filtered"):
-        t.bm25.search(["a"], filter_mask=mask)
+    docs = ["a b", "b c", "c d"]
+    t = tr.HybridRetriever.build(docs, dim=8, device="cpu")
+    j = jr.HybridRetriever.build(docs, dim=8)
+    bad = [
+        ({"filter_mask": np.ones(3, np.int32)}, TypeError, "bool"),
+        ({"filter_mask": np.ones(4, bool)}, ValueError, "shape"),
+        ({"filter_group": [0]}, ValueError, "requires filter_mask"),
+    ]
+    for retr in (t, t.dense, t.bm25):
+        for kwargs, err, match in bad:
+            with pytest.raises(err, match=match):
+                retr.search(["a"], **kwargs)
+    mask = np.array([True, False, True])
+    for got, want in (
+        (t.search(["b c"], k=3, filter_mask=mask), j.search(["b c"], k=3, filter_mask=mask)),
+        (t.dense.search(["b c"], 3, filter_mask=mask), j.dense.search(["b c"], 3, filter_mask=mask)),
+        (t.bm25.search(["b c"], 3, filter_mask=mask), j.bm25.search(["b c"], 3, filter_mask=mask)),
+    ):
+        _assert_close(got, want)
+        assert not (got.ids == 1).any()
     with pytest.raises(ValueError):
         tr.HybridRetriever.build(["a"], dim=8, fusion="max", device="cpu")

@@ -8,9 +8,9 @@ the JAX ``HybridRetriever``, Pallas in interpret mode on the CPU, as in
 ``tests/test_torch_retriever.py``) on the same seeded corpus and waves,
 under that file's near-tie rule (``ranking_utils.assert_ranking_close``:
 scores within 1e-5, ids equal outside clusters of scores within 1e-5);
-filtered waves and requests, which raise ``NotImplementedError``
-until filtered search is ported; and the drain race of the pipeline's
-shutdown."""
+filtered waves and coalesced filtered requests, equal to the sequential
+path and to direct filtered searches; and the drain race of the
+pipeline's shutdown."""
 
 import itertools
 import queue
@@ -257,30 +257,42 @@ def test_unfiltered_wave_stays_on_plain_program():
 
 
 def test_filtered_request_on_the_port_retriever_raises_for_every_caller():
-    """Filtered search is not ported: a coalesced filtered wave reaches the
-    retriever's NotImplementedError, and each of its callers gets it,
-    unfiltered callers of the same wave included (they share the call)."""
+    """A coalesced wave of a filtered and an unfiltered caller on the
+    port's retriever runs as one grouped filtered search (two mask rows,
+    one of them all-True); each caller gets its own result, equal to a
+    direct search of its query with its own filter (none for the
+    unfiltered caller) under the near-tie rule, and no masked id. Malformed filters still raise,
+    to every caller of the wave."""
     r = HybridRetriever.build(["a b", "b c", "c d"], dim=8, device="cpu")
-    co = BatchCoalescer(r.search, max_batch=2, max_wait_ms=50.0)
-    errors = {}
-
-    def call(name, filters):
-        try:
-            co.search([name], k=2, filters=filters)
-        except NotImplementedError as e:
-            errors[name] = e
-
     mask = np.array([True, False, True])
-    threads = [
-        threading.Thread(target=call, args=("b", [(("t",), mask)])),
-        threading.Thread(target=call, args=("c", None)),
-    ]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=10)
-    assert co.batches_run == 1
-    assert set(errors) == {"b", "c"} and "filtered" in str(errors["b"])
+    results, errors = {}, {}
+
+    def run(co, entries):
+        def call(name, filters):
+            try:
+                results[name] = co.search([name], k=2, filters=filters)
+            except ValueError as e:
+                errors[name] = e
+
+        threads = [threading.Thread(target=call, args=e) for e in entries]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=10)
+        assert not any(t.is_alive() for t in threads)
+
+    co = BatchCoalescer(r.search, max_batch=2, max_wait_ms=50.0)
+    run(co, [("b", [(("t",), mask)]), ("c", None)])
+    assert co.batches_run == 1 and not errors
+    want_b = r.search(["b"], k=2, filter_mask=mask)
+    want_c = r.search(["c"], k=2)
+    for got, want in ((results["b"], want_b), (results["c"], want_c)):
+        # a product over a batch of two may round apart from one of one
+        assert_ranking_close(got.scores, got.ids, want.scores, want.ids, rtol=0, atol=TOL)
+    assert not (results["b"].ids == 1).any()
+    co = BatchCoalescer(r.search, max_batch=2, max_wait_ms=50.0)
+    run(co, [("b", [(("bad",), np.ones(4, bool))]), ("c", None)])
+    assert set(errors) == {"b", "c"} and "shape" in str(errors["b"])
 
 
 # ---------------------------------------------------------------------------
@@ -348,21 +360,29 @@ def test_pipelined_stream_producer_error_propagates():
 
 
 def test_filtered_wave_raises_at_its_position():
-    """A filtered wave is refused by ``prepare`` (not ported): the waves
-    before it are delivered, equal to the sequential path, then the error
-    surfaces where the wave stood; nothing after it is served."""
+    """A filtered wave in the pipelined stream (a single mask, then
+    per-query groups with a starved include-list) is served at its
+    position, equal to the sequential prepare -> run_prepared path with
+    the same filter, between unfiltered waves."""
     r, waves = _pipeline_fixture()
     mask = np.zeros(r.n_docs, bool)
     mask[::2] = True
-    stream = [waves[0], waves[1], (waves[2][0], waves[2][1], {"filter_mask": mask}), waves[3]]
-    it = PipelinedSearcher(r, depth=2).run_prepared_stream(iter(stream), k=5)
-    for wave in waves[:2]:
-        want = r.run_prepared(r.prepare(*wave, k=5))
-        np.testing.assert_array_equal(next(it).ids, want.ids)
-    with pytest.raises(NotImplementedError, match="filtered"):
-        next(it)
-    with pytest.raises(StopIteration):
-        next(it)
+    few = np.zeros(r.n_docs, bool)
+    few[[3, 50, 111]] = True
+    groups = np.arange(len(waves[3][0]), dtype=np.int32) % 2
+    filters = [
+        {}, {}, {"filter_mask": mask},
+        {"filter_mask": np.stack([mask, few]), "filter_group": groups},
+    ]
+    stream = [(*w, f) for w, f in zip(waves, filters)]
+    got = list(PipelinedSearcher(r, depth=2).run_prepared_stream(iter(stream), k=5))
+    assert len(got) == len(waves)
+    for (term_ids, emb, f), res in zip(stream, got):
+        want = r.run_prepared(r.prepare(term_ids, emb, k=5, **f))
+        np.testing.assert_array_equal(res.ids, want.ids)
+        np.testing.assert_array_equal(res.scores, want.scores)
+    assert mask[got[2].ids[got[2].ids >= 0]].all()
+    assert np.isin(got[3].ids[1::2][got[3].ids[1::2] >= 0], [3, 50, 111]).all()
 
 
 def test_cpu_stages_have_no_events():

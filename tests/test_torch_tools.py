@@ -220,3 +220,25 @@ ptxas info    : Used 10 registers, 372 bytes cmem[0]
     name = "_ZN44_GLOBAL__N__62b4206e_11_turbo_i8_cu_83787ca615turbo_i8_kernelILi7ELi1ELi1EEEvPKaS2_Piii"
     assert ptxas_report.kernel_name(name) == "_ZN44_ANON_turbo_i815turbo_i8_kernelILi7ELi1ELi1EEEvPKaS2_Piii"
     assert [ptxas_report.opcode(i) for i in instrs] == ["IMNMX", "BRA", "VIMNMX3"]
+
+
+def test_serving_ab_turns_and_reads_phases_14_and_15():
+    """``serving_ab`` alternates the trees (a, b, b, a per round) and reads
+    the rates and latencies from the lines phases 14 and 15 print."""
+    from openintel_tpu_torch.tools import serving_ab
+
+    assert serving_ab.run_order(2) == [0, 1, 1, 0, 0, 1, 1, 0]
+    text = (
+        "phase14 pipelined serving at N=1250000, D=384 (int8 arm), 8 waves of 4 x 256 "
+        "queries, depth 2: sequential 17605 q/s (0.500/0.431 s), pipelined 19271 q/s "
+        "(0.463/0.388 s), ratio 1.095; per wave alone: prepare 39.6 ms, step 14.6 ms\n"
+        "phase15 coalesced serving: 8 callers x 64 queries for 5.02 s: 454 calls, "
+        "batches_run 160, queries_run 29056, 5784 q/s; caller latency p50 81.6 ms, "
+        "p99 230.8 ms, max 296.2 ms; waves: 60 full of 256\n"
+    )
+    assert serving_ab.parse(text) == {
+        "sequential": 17605.0, "pipelined": 19271.0, "prepare_ms": 39.6,
+        "coalesced": 5784.0, "p50_ms": 81.6, "p99_ms": 230.8,
+    }
+    with pytest.raises(ValueError, match="coalesced"):
+        serving_ab.parse(text.splitlines()[0])
