@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's hybrid search on one NVIDIA card and check it.
 
-    python3 chip_smoke.py            # all phases (one card, ~7-8 min)
+    python3 chip_smoke.py            # all phases (one card, ~9-14 min)
     python3 chip_smoke.py --quick    # build + kernel-vs-twin checks only
     python3 chip_smoke.py --profile  # all phases, and a profile of each path
 
 Phases, one line of output each (any failed check raises, exit code != 0),
 run in the order 1, 2, 3, 6, 7, 10 (the kernel checks; ``--quick`` stops
-there), then 4, 5, 12, 13, 8, 9, 11, 14, 15, 16, 17, 18, 19, 20, 21 (the
-paths):
+there), then 4, 5, 12, 13, 8, 9, 11, 14, 15, 16, 17, 18, 19, 20, 21, 22
+(the paths):
 
 1. environment: the card, torch and CUDA versions, the kernel build (nvcc,
    ``openintel_tpu_torch/csrc``) and the C++ query planner;
@@ -162,8 +162,8 @@ paths):
    k = 20 held to its twin; ``build_server(index, encoder)`` under 8
    callers, each response equal to a direct search; ``--updatable``: 512
    texts embedded on the card by ``index_documents``, 1 % deleted, a
-   search equal to the plain route; ``train --mesh`` refused (item 13b)
-   and ``search --mesh 2x4`` beyond the one card refused;
+   search equal to the plain route; ``search --mesh 2x4`` beyond the one
+   card refused;
 19. ROADMAP item 12 on phase 18's corpus, checkpoint and index:
    ``train --reranker --analyzer`` through the CLI (100 reranker steps of
    8 queries x 4 candidates warm-started from the encoder, 200 analyzer
@@ -226,7 +226,29 @@ paths):
    --coordinator`` as 2 CPU processes equal to the in-process CPU mesh;
    the sharded live corpus (2,048 added, 1 % deleted, compacted in place)
    bit-identical to its plain runs with recall@10 >= 0.95 against the
-   exact combined index.
+   exact combined index;
+22. ROADMAP item 13b, the encoder's tensor parallelism
+   (``openintel_tpu_torch.parallel.tensor``), on phase 18's corpus and
+   settings at the default ``EncoderConfig``: 20 steps on the card, then
+   over a 1 x 4 and a 2 x 2 mesh of the one card
+   (``make_mesh(devices=[card] * 4)``) from the same seed, every step's
+   loss within rtol 2e-3, atol 2e-4 of the card's (the reference's mesh
+   test) and the final weights' largest difference; each mesh's step
+   against one card's in turns, with the launches a step and the share of
+   the device time in the cross-cell copies and sums by the profiler; the
+   1 x 4 run's gathered checkpoint with one card's keys and shapes,
+   resumed one step on the card and on the CPU (weights within 1e-5; the
+   one CPU run of the phase) and on the 2 x 2 mesh (the loss within the
+   mesh tolerance); ``train --mesh 1xN`` through the CLI on the N cards
+   there are (the mesh line, a checkpoint that loads) and ``--mesh 2x4``
+   beyond them refused with the reference's text; the served path's
+   recall@10 against the exact path over the 20-step checkpoints' indexes
+   (one card's and 1 x 4's; printed, no limit); the 1 x 4 run resumed on
+   its mesh to phase 18's 200 steps, its loss falling; ``index
+   --encoder`` of the 100,000 docs with that checkpoint and ``search
+   --encoder`` through the CLI and the library path as in phase 18
+   (kernel A's cells and kernel B against their twins, recall@10 against
+   the exact path >= 0.95).
 
 Each path runs in its own counted window: the kernel launch counts are
 zeroed just before it and read just after, and each kernel of the path
@@ -250,7 +272,10 @@ their time, twin time and bound at D = 256 (``d256``), and phase 19's
 (``item12_launches``); A's carries phase 20's (``item14_launches``); A's
 and B's carry phase 21's (``mesh``: launches per sub-batch, the shard
 launch's time and bound, and for A the step, the filtered, rank, entry
-point and live corpus records).
+point and live corpus records); and phase 22's (``tensor_parallel``: the
+CLI search launches over the mesh-trained encoder's index, the time, twin
+time and bound at D = 256, and for A the training steps' times and
+profiles).
 
 With ``--profile``, phases 4, 8, 9, 12 (each store) and 16 (each int8
 mask) add a ``profile`` line:
@@ -270,6 +295,7 @@ import datetime
 import functools
 import gc
 import io
+import itertools
 import json
 import os
 import statistics
@@ -323,6 +349,7 @@ from openintel_tpu_torch.ops.dense import (
 from openintel_tpu_torch.ops.fusion import rrf_fuse_device
 from openintel_tpu_torch.parallel import retriever as mesh_retriever
 from openintel_tpu_torch.parallel import sharded
+from openintel_tpu_torch.parallel import tensor as tensor_parallel
 from openintel_tpu_torch.parallel.distributed import initialize_distributed
 from openintel_tpu_torch.parallel.mesh import make_mesh
 from openintel_tpu_torch.parallel.retriever import ShardedHybridRetriever, shard_query_plans
@@ -2941,11 +2968,11 @@ def encoder_encode(docs, ck, card, profile: bool) -> None:
     )
 
 
-def encoder_index(path, ck, prefix, card) -> None:
-    """18.3: ``index --encoder`` through the CLI, split into host
-    tokenising, encoding on the card, the BM25 build and the save."""
+def encoder_index(path, ck, prefix, card, phase: str = "phase18", reps: int = ENC_REPS) -> None:
+    """18.3 (and 22.5): ``index --encoder`` through the CLI, split into
+    host tokenising, encoding on the card, the BM25 build and the save."""
     runs = []
-    for _ in range(ENC_REPS):
+    for _ in range(reps):
         tok, enc, bm25, save = [], [], [], []
         out = io.StringIO()
         with contextlib.ExitStack() as stack:
@@ -2965,19 +2992,19 @@ def encoder_index(path, ck, prefix, card) -> None:
     if meta != {"embedder": "neural", "dim": 256, "dense_store": "f32"}:
         raise AssertionError(f"index meta {meta}")
     log(
-        f"phase18 cli index --encoder: {ENC_DOCS} docs in {total:.2f} s (median of {ENC_REPS}): "
+        f"{phase} cli index --encoder: {ENC_DOCS} docs in {total:.2f} s (median of {reps}): "
         f"host tokenising {tok_s:.2f} s, encoding on the card {enc_s:.2f} s "
         f"({ENC_DOCS / enc_s:,.0f} docs a second, copies included), BM25 build {bm25_s:.2f} s, "
         f"save {save_s:.2f} s, the rest {total - tok_s - enc_s - bm25_s - save_s:.2f} s [{card}]"
     )
 
 
-def encoder_search(prefix, ck, docs, syn, card) -> dict:
-    """18.4 and 18.5: ``search --encoder`` through the CLI on 256 strings
-    (128 mismatch, 128 exact), equal to a direct search; kernel A's cells
-    at 256 x 100,000 x 256 against its twin, recall@10 against the exact
-    path; then ``--kernel pallas`` through kernel B. Returns A's and B's
-    records for this width."""
+def encoder_search(prefix, ck, docs, syn, card, phase: str = "phase18") -> dict:
+    """18.4 and 18.5 (and 22.5): ``search --encoder`` through the CLI on
+    256 strings (128 mismatch, 128 exact), equal to a direct search;
+    kernel A's cells at 256 x 100,000 x 256 against its twin, recall@10
+    against the exact path; then ``--kernel pallas`` through kernel B.
+    Returns A's and B's records for this width."""
     rng = np.random.default_rng(184)
     mismatch, m_ids = encoder_queries(docs, syn, rng, BATCH // 2, 1.0)
     exact_q, e_ids = encoder_queries(docs, syn, rng, BATCH // 2, 0.0)
@@ -3037,7 +3064,7 @@ def encoder_search(prefix, ck, docs, syn, card) -> dict:
             extra = "kernel B at k = 20"
         out[counter]["encoder_launches"] = {"cli_search": launches}
         log(
-            f"phase18 cli search --encoder --kernel {kernel}: {BATCH} strings ({BATCH // 2} "
+            f"{phase} cli search --encoder --kernel {kernel}: {BATCH} strings ({BATCH // 2} "
             f"mismatch, {BATCH // 2} exact) in {statistics.median(times):.2f} s a process call "
             f"(median of {ENC_REPS}, load and encoding included), {counter} launches 1 each; "
             f"json equal to a direct search ({swaps} near-tie swaps); {extra} [{card}]"
@@ -3147,15 +3174,9 @@ def encoder_mcp(prefix, ck, docs, syn, card) -> dict:
     return {"mcp": a_mcp, "updatable": counts["i8_top2g"]}
 
 
-def encoder_refusals(prefix, ck, path, tmp) -> None:
-    """18.7: ``train --mesh`` (still refused) exits 1 naming its ROADMAP
-    item; ``search --encoder --mesh 2x4`` on fewer than 8 cards exits 1
+def encoder_refusals(prefix, ck) -> None:
+    """18.7: ``search --encoder --mesh 2x4`` on fewer than 8 cards exits 1
     with the reference's text."""
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        code = cli_main(["train", path, "--out", f"{tmp}/refused", "--mesh", "2x4"])
-    if code != 1 or "ROADMAP item 13b" not in out.getvalue():
-        raise AssertionError(f"train --mesh: exit {code}, {out.getvalue()!r}")
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         code = cli_main(["search", "x", "--index", prefix, "--encoder", ck, "--mesh", "2x4"])
@@ -3184,10 +3205,10 @@ def phase_encoder(card, profile: bool, tmp: str) -> tuple[dict, dict]:
     records = encoder_search(prefix, ck, docs, syn, card)
     launches = encoder_mcp(prefix, ck, docs, syn, card)
     records["i8_top2g"]["encoder_launches"].update(launches)
-    encoder_refusals(prefix, ck, path, tmp)
+    encoder_refusals(prefix, ck)
     log(
-        f"phase18 refusals: train --mesh (item 13b) exits 1; search --mesh 2x4 on "
-        f"{torch.cuda.device_count()} card(s) exits 1 with the reference's text [{card}]"
+        f"phase18 refusals: search --mesh 2x4 on {torch.cuda.device_count()} card(s) exits 1 "
+        f"with the reference's text [{card}]"
     )
     free_device()
     return records, {"docs": docs, "syn": syn, "path": path, "ck": ck, "prefix": prefix}
@@ -4931,6 +4952,331 @@ def phase_mesh(corpus, card) -> dict:
     return {"i8_top2g": {"mesh": a_rec}, "fused_topk": {"mesh": b_rec}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the encoder's tensor parallelism (ROADMAP item 13b)
+# ---------------------------------------------------------------------------
+
+TP_STEPS = 20  # 22.1: steps of each run, one card and each mesh
+TP_MESHES = ((1, 4), (2, 2))  # data x model meshes of the one card
+TP_TOL = dict(rtol=2e-3, atol=2e-4)  # losses against one card's: the reference's mesh test
+TP_ROUNDS, TP_REPS = 5, 5  # 22.2: rounds in turns x steps timed each
+TP_PROFILED = 5  # 22.2: steps under the profiler
+TP_CLI_STEPS = 3  # 22.4: steps of train --mesh through the CLI
+
+
+def tp_train(docs, syn, mesh, ck) -> tuple:
+    """``train_encoder`` for TP_STEPS at phase 18's settings, on the card or
+    over ``mesh``, checkpointed to ``ck``: (result, median step in ms
+    on the host clock, synced by the loss, batch making included)."""
+    starts, make_pairs = [], train_mod.make_pairs
+
+    def stamped(*args, **kw):  # a step starts with its batch
+        starts.append(time.perf_counter())
+        return make_pairs(*args, **kw)
+
+    train_mod.make_pairs = stamped
+    try:
+        res = train_encoder(
+            docs, EncoderConfig(), steps=TP_STEPS, batch_size=ENC_BATCH, lr=ENC_LR, seed=0,
+            ckpt_dir=ck, ckpt_every=TP_STEPS, mesh=mesh, synonym_map=syn, flip_p=ENC_FLIP,
+            device="cuda",
+        )
+    finally:
+        train_mod.make_pairs = make_pairs
+    losses = np.array(res.losses)
+    if losses.shape != (TP_STEPS,) or not np.isfinite(losses).all():
+        raise AssertionError(f"training gave losses {losses[:4]}...")
+    if next(res.params.parameters()).device.type != "cuda":
+        raise AssertionError("the trained encoder is not on the card")
+    return res, statistics.median(np.diff(starts)[1:]) * 1e3
+
+
+def tp_mesh_runs(docs, syn, tmp, card) -> dict:
+    """22.1: TP_STEPS steps on the card, then over each mesh of TP_MESHES
+    from the same seed: every step's loss within TP_TOL of the card's."""
+    runs = {"card": tp_train(docs, syn, None, f"{tmp}/tp_card")}
+    for data, corpus in TP_MESHES:
+        runs[f"{data}x{corpus}"] = tp_train(docs, syn, card_mesh(data, corpus), f"{tmp}/tp_{data}x{corpus}")
+    one = runs["card"][0]
+    parts = []
+    for name, (res, ms) in runs.items():
+        if name == "card":
+            continue
+        drift = np.abs(np.array(res.losses) - one.losses)
+        if not np.allclose(res.losses, one.losses, **TP_TOL):
+            bad = int(np.argmax(drift > TP_TOL["atol"] + TP_TOL["rtol"] * np.abs(one.losses)))
+            raise AssertionError(f"mesh {name}: loss at step {bad} {res.losses[bad]} vs one card {one.losses[bad]}")
+        w_err = max(
+            float((a - b).detach().abs().max()) for a, b in zip(res.params.parameters(), one.params.parameters())
+        )
+        parts.append(
+            f"{name}: losses within {drift.max():.3g} of one card's (rtol {TP_TOL['rtol']}, atol "
+            f"{TP_TOL['atol']}), step 0 {res.losses[0]:.6f}, step {TP_STEPS - 1} {res.losses[-1]:.6f}, "
+            f"final weights within {w_err:.3g}, median step {ms:.1f} ms"
+        )
+    log(
+        f"phase22 mesh training: the CLI's default EncoderConfig, {TP_STEPS} steps of batch {ENC_BATCH} "
+        f"at lr {ENC_LR} on phase 18's {ENC_DOCS} synonym docs, one seed; one card: loss "
+        f"{one.losses[0]:.6f} -> {one.losses[-1]:.6f}, median step {runs['card'][1]:.1f} ms; "
+        + "; ".join(parts) + f" (host clock, synced by the loss, batch making included) [{card}]"
+    )
+    return {name: res for name, (res, _) in runs.items()}
+
+
+def tp_steppers(model, docs, syn) -> dict:
+    """22.2: a training step (zero_grad, loss, backward, AdamW, the loss
+    read) for one card and each mesh of TP_MESHES, from the same weights,
+    over the same batches staged on the card beforehand."""
+    embedder = NeuralEmbedder(model.cfg, model, device="cuda")
+    rng = np.random.default_rng(222)
+    batches = [
+        train_mod.make_pairs(docs, embedder, ENC_BATCH, rng, synonym_map=syn, flip_p=ENC_FLIP, device="cuda")
+        for _ in range(4)
+    ]
+    owners = {"card": (model, info_nce_loss)}
+    for data, corpus in TP_MESHES:
+        owners[f"{data}x{corpus}"] = (
+            tensor_parallel.shard_encoder(model, card_mesh(data, corpus)), tensor_parallel.info_nce_loss
+        )
+
+    def stepper(owner, loss_fn):
+        opt, turn = train_mod._adamw(owner, ENC_LR), itertools.count()
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss = loss_fn(owner, *batches[next(turn) % len(batches)])
+            loss.backward()
+            opt.step()
+            return loss.item()
+
+        return step
+
+    return {name: stepper(*pair) for name, pair in owners.items()}
+
+
+def tp_profile(step) -> dict:
+    """``torch.profiler`` over TP_PROFILED steps: device time and launches a
+    step, and the share of the device time in the kernels launched under
+    ``tp.spread`` and ``tp.sum`` (the cross-cell copies and sums, forward
+    and backward)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TP_PROFILED):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    labels = ("tp.spread", "tp.sum")
+    dev = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in labels]
+    total_us = sum(e.self_device_time_total for e in dev)
+    if not total_us:
+        raise AssertionError("the profiler saw no device time")
+    split_us = sum(
+        e.device_time_total for e in events if e.key in labels and e.device_type == DeviceType.CPU
+    )
+    return {
+        "device_ms": total_us / TP_PROFILED / 1e3,
+        "launches": sum(e.count for e in dev) / TP_PROFILED,
+        "split_share": split_us / total_us,
+        "busy_share": total_us / wall_us,
+    }
+
+
+def tp_timing(model, docs, syn, card) -> dict:
+    """22.2: each mesh's step against one card's, in turns (TP_ROUNDS
+    rounds of TP_REPS steps each, the order rotating), and each one's
+    profile."""
+    steps = tp_steppers(model, docs, syn)
+    names = list(steps)
+    for fn in steps.values():
+        fn()  # warm
+    times = {name: [] for name in names}
+    for r in range(TP_ROUNDS):
+        for name in names[r % len(names):] + names[: r % len(names)]:
+            times[name].append(synced_ms(steps[name], TP_REPS))
+    med = {name: statistics.median(t) for name, t in times.items()}
+    prof = {name: tp_profile(fn) for name, fn in steps.items()}
+    log(
+        f"phase22 step time: median of {TP_ROUNDS} rounds in turns of {TP_REPS} steps each (host "
+        f"clock, synced by the loss; batches staged on the card): one card {med['card']:.2f} ms, "
+        + ", ".join(
+            f"{n} {med[n]:.2f} ms ({med[n] / med['card']:.2f} x one card's)" for n in names[1:]
+        )
+        + "; by the profiler over "
+        + f"{TP_PROFILED} steps: "
+        + "; ".join(
+            f"{n} device {p['device_ms']:.2f} ms a step in {p['launches']:.0f} launches, busy share "
+            f"{p['busy_share']:.3f}, the cross-cell copies and sums {p['split_share']:.3f} of the "
+            "device time"
+            for n, p in prof.items()
+        )
+        + f" [{card}]"
+    )
+    del steps
+    free_device()
+    return {"step_ms": med, "profile": prof}
+
+
+def tp_checkpoint(docs, syn, tmp, card) -> None:
+    """22.3: the 1 x 4 run's gathered checkpoint has a one-card
+    checkpoint's keys and shapes, and resumes one step on the card, on the
+    CPU (weights within ENC_TOL) and on the 2 x 2 mesh (loss within
+    TP_TOL). The CPU run is the named exception to no-CPU-fallback."""
+    import shutil
+
+    with np.load(f"{tmp}/tp_1x4/encoder.npz") as a, np.load(f"{tmp}/tp_card/encoder.npz") as b:
+        if {k: a[k].shape for k in a.files} != {k: b[k].shape for k in b.files}:
+            raise AssertionError("the mesh checkpoint's keys or shapes differ from one card's")
+        n_keys = len(a.files)
+    resumed = {}
+    for name, mesh, dev in (("card", None, "cuda"), ("cpu", None, "cpu"), ("2x2", card_mesh(2, 2), "cuda")):
+        shutil.copytree(f"{tmp}/tp_1x4", f"{tmp}/tp_resume_{name}")
+        logs = []
+        resumed[name] = train_encoder(
+            docs, EncoderConfig(), steps=TP_STEPS + 1, batch_size=ENC_BATCH, lr=ENC_LR, seed=0,
+            ckpt_dir=f"{tmp}/tp_resume_{name}", mesh=mesh, synonym_map=syn, flip_p=ENC_FLIP,
+            device=dev, log=logs.append,
+        )
+        if f"resumed from step {TP_STEPS}" not in logs or len(resumed[name].losses) != 1:
+            raise AssertionError(f"resume on {name}: {logs}")
+    w_err = max(
+        float((a.detach().cpu() - b.detach()).abs().max())
+        for a, b in zip(resumed["card"].params.parameters(), resumed["cpu"].params.parameters())
+    )
+    l_card, l_cpu, l_mesh = (resumed[n].losses[0] for n in ("card", "cpu", "2x2"))
+    if w_err > ENC_TOL or abs(l_card - l_cpu) > ENC_TOL * abs(l_cpu):
+        raise AssertionError(f"one resumed step: weights differ by {w_err:.3g}, loss {l_card} vs {l_cpu}")
+    if not np.isclose(l_mesh, l_card, **TP_TOL):
+        raise AssertionError(f"the 2x2 mesh's resumed loss {l_mesh} vs the card's {l_card}")
+    log(
+        f"phase22 checkpoint: the 1x4 run's gathered checkpoint ({n_keys} arrays) has one card's keys "
+        f"and shapes; one more step resumed on the card and on the CPU (the named CPU half): weights "
+        f"within {w_err:.3g} (<= {ENC_TOL}), loss {l_card:.6f} vs {l_cpu:.6f}; on the 2x2 mesh loss "
+        f"{l_mesh:.6f} (rtol {TP_TOL['rtol']}, atol {TP_TOL['atol']}) [{card}]"
+    )
+    del resumed
+    free_device()
+
+
+def tp_cli(path, tmp, card) -> None:
+    """22.4: ``train --mesh 1xN`` through the CLI on the N cards there are
+    (the default EncoderConfig, TP_CLI_STEPS steps): exit 0, the mesh line,
+    a loadable checkpoint; ``--mesh 2x4`` on fewer than 8 cards refused
+    with the reference's text."""
+    n_cards = torch.cuda.device_count()
+    spec = f"1x{n_cards}"
+    argv = ["train", path, "--out", f"{tmp}/tp_cli", "--mesh", spec, "--steps", str(TP_CLI_STEPS),
+            "--batch-size", str(ENC_BATCH), "--lr", str(ENC_LR)]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = cli_main(argv)
+    secs = time.perf_counter() - t0
+    text = out.getvalue()
+    if code != 0 or f"mesh: data=1 x model={n_cards}" not in text or f"trained to step {TP_CLI_STEPS}" not in text:
+        raise AssertionError(f"train --mesh {spec}: exit {code}, {text[-400:]!r}")
+    emb = load_embedder(f"{tmp}/tp_cli")
+    rows = emb(["wa1 wa2 wa3", "wb7"])
+    if rows.shape != (2, 256) or not np.isfinite(rows).all():
+        raise AssertionError(f"the CLI's mesh checkpoint encodes to {rows.shape}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = cli_main(argv[:4] + ["--mesh", "2x4"])
+    want = f"error: --mesh 2x4: mesh 2x4 != {n_cards} devices"
+    if n_cards < 8 and (code, out.getvalue().strip()) != (1, want):
+        raise AssertionError(f"train --mesh 2x4: exit {code}, {out.getvalue()!r}")
+    log(
+        f"phase22 cli train --mesh {spec}: exit 0 in {secs:.2f} s ({TP_CLI_STEPS} steps, the load of "
+        f"{ENC_DOCS} docs included), the mesh line, a checkpoint that loads and encodes; --mesh 2x4 on "
+        f"{n_cards} card(s) exits 1 with the reference's text [{card}]"
+    )
+    del emb
+    free_device()
+
+
+def tp_recall(path, ck, prefix, docs, syn) -> float:
+    """recall@10 of the served int8 path against the exact path over the
+    index ``index --encoder ck`` builds, on 18.4's strings (the library
+    path of 18.4, not timed)."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        if cli_main(["index", path, "--out", prefix, "--encoder", ck]) != 0:
+            raise AssertionError(f"cli index --encoder {ck} failed")
+    rng = np.random.default_rng(184)
+    strings = encoder_queries(docs, syn, rng, BATCH // 2, 1.0)[0] + encoder_queries(docs, syn, rng, BATCH // 2, 0.0)[0]
+    emb = load_embedder(ck)
+    retr = HybridRetriever(
+        load_postings(f"{prefix}.postings.npz"), load_dense(f"{prefix}.dense.npz"), emb, device="cuda",
+        device_batch=BATCH,
+    )
+    term_ids, q_emb = [encode_query(retr.bm25.index, s) for s in strings], emb(strings)
+    prep = retr.prepare(term_ids, q_emb, k=K, candidates_per_arm=2 * K)
+    served = retr.finalize_prepared(prep, retr.run_prepared_device(prep))
+    recall = recall_at_k(served.ids, exact_hybrid(retr, prep, retr.dense._rescore_emb, prep.queries))
+    del retr, emb
+    free_device()
+    return recall
+
+
+def tp_continue(docs, syn, ck, card) -> None:
+    """22.5's encoder: the 1 x 4 run resumed on its mesh to ENC_STEPS,
+    phase 18's length of training, its loss falling."""
+    logs = []
+    t0 = time.perf_counter()
+    res = train_encoder(
+        docs, EncoderConfig(), steps=ENC_STEPS, batch_size=ENC_BATCH, lr=ENC_LR, seed=0, ckpt_dir=ck,
+        ckpt_every=ENC_STEPS, mesh=card_mesh(1, 4), synonym_map=syn, flip_p=ENC_FLIP, device="cuda",
+        log=logs.append,
+    )
+    secs = time.perf_counter() - t0
+    losses = np.array(res.losses)
+    if f"resumed from step {TP_STEPS}" not in logs or losses.shape != (ENC_STEPS - TP_STEPS,):
+        raise AssertionError(f"the 1x4 run did not resume: {logs[:2]}, {losses.shape}")
+    head, tail = losses[:10].mean(), losses[-10:].mean()
+    if not np.isfinite(losses).all() or not tail < head:
+        raise AssertionError(f"the loss did not fall: first 10 {head:.4f}, last 10 {tail:.4f}")
+    log(
+        f"phase22 1x4 run resumed on its mesh to step {ENC_STEPS} (phase 18's length) in {secs:.2f} s: "
+        f"loss {losses[0]:.4f} at step {TP_STEPS} -> {losses[-1]:.4f} (mean of the first 10 "
+        f"{head:.4f}, of the last 10 {tail:.4f}) [{card}]"
+    )
+    del res
+    free_device()
+
+
+def phase_tensor_parallel(card, state, tmp) -> dict:
+    """Phase 22: the encoder's tensor parallelism (ROADMAP item 13b) on
+    phase 18's corpus, in its directory ``tmp``. Returns kernel A's and B's
+    records for the ``kernels`` line (``tensor_parallel``)."""
+    t0 = time.perf_counter()
+    docs, syn = state["docs"], state["syn"]
+    runs = tp_mesh_runs(docs, syn, tmp, card)
+    timing = tp_timing(runs["card"].params, docs, syn, card)
+    del runs
+    free_device()
+    tp_checkpoint(docs, syn, tmp, card)
+    tp_cli(state["path"], tmp, card)
+    early = {name: tp_recall(state["path"], f"{tmp}/tp_{name}", f"{tmp}/tp_idx_{name}", docs, syn)
+             for name in ("card", "1x4")}
+    log(
+        f"phase22 served recall@{K} against the exact path over the {TP_STEPS}-step checkpoints' "
+        f"indexes (no limit: {TP_STEPS} steps, not phase 18's {ENC_STEPS}): one card "
+        f"{early['card']:.4f}, 1x4 mesh {early['1x4']:.4f} [{card}]"
+    )
+    ck, prefix = f"{tmp}/tp_1x4", f"{tmp}/tp_enc"
+    tp_continue(docs, syn, ck, card)
+    encoder_index(state["path"], ck, prefix, card, phase="phase22", reps=1)
+    records = encoder_search(prefix, ck, docs, syn, card, phase="phase22")
+    free_device()
+    log(f"phase22 done in {time.perf_counter() - t0:.1f} s [{card}]")
+    records["i8_top2g"].update(step=timing, recall_at_20_steps=early)
+    return {name: {"tensor_parallel": rec} for name, rec in records.items()}
+
+
+
 def run(quick: bool, profile: bool) -> None:
     env = phase_environment()
     card = env["card"]
@@ -4940,7 +5286,7 @@ def run(quick: bool, profile: bool) -> None:
     phase_kernel_e()
     phase_kernel_c_s()
     if quick:
-        log("quick run: the paths (phases 4, 5, 12, 13, 8, 9, 11, 14, 15, 16, 17, 18, 19, 20, 21) skipped")
+        log("quick run: the paths (phases 4, 5, 12, 13, 8, 9, 11, 14, 15, 16, 17, 18, 19, 20, 21, 22) skipped")
         return
 
     corpus = build_corpus()
@@ -4969,10 +5315,13 @@ def run(quick: bool, profile: bool) -> None:
         encoder, state = phase_encoder(card, profile, tmp)
         item12 = phase_item12(card, state, tmp)
         item14 = phase_item14(card, state)
+        free_device()
+        mesh = phase_mesh(corpus, card)
+        del corpus
+        free_device()
+        tensor = phase_tensor_parallel(card, state, tmp)
     del state
     free_device()
-    mesh = phase_mesh(corpus, card)
-    del corpus
     for entry in kernels:
         entry.update(filtered.get(entry["name"], {}))
         entry.update(entry_points.get(entry["name"], {}))
@@ -4980,6 +5329,7 @@ def run(quick: bool, profile: bool) -> None:
         entry.update(item12.get(entry["name"], {}))
         entry.update(item14.get(entry["name"], {}))
         entry.update(mesh.get(entry["name"], {}))
+        entry.update(tensor.get(entry["name"], {}))
 
     leaked = sorted(
         m for m in sys.modules

@@ -29,10 +29,10 @@ the card; ``--device cpu`` (the port's counterpart of the reference's
 ``JAX_PLATFORMS=cpu``) runs it on the host. Without a card and without
 ``--device cpu``, such a command fails with CUDA's own error: nothing
 moves to the CPU quietly. ``pulse``, ``setup`` and a one-ticker ``risk``
-touch no device, as in the reference.
-
-Not ported yet, and refused with exit code 1 rather than dropped:
-``train --mesh`` (ROADMAP item 13b).
+touch no device, as in the reference. ``train --mesh DxM`` trains over
+the first D·M devices of ``--device`` (the cards there are; on the CPU the
+host stands in for as many as asked), data parallel over D and tensor
+parallel over M.
 """
 
 from __future__ import annotations
@@ -46,19 +46,6 @@ from pathlib import Path
 from typing import Optional
 
 KERNEL_CHOICES = ["auto", "xla", "pallas", "fast", "int8", "int4"]
-
-# flags of the reference's surface that the port refuses: by subcommand,
-# each with its ROADMAP item
-_NOT_PORTED = {"train": {"--mesh": "13b"}}
-
-
-def not_ported(command: str, flag: str) -> str:
-    """The error for a flag whose path is not ported yet."""
-    return (
-        f"error: {flag} is not ported to the PyTorch package yet "
-        f"(ROADMAP item {_NOT_PORTED[command][flag]})"
-    )
-
 
 def _add_device_flag(p: argparse.ArgumentParser, what: str = "the index is served") -> None:
     p.add_argument(
@@ -99,16 +86,6 @@ def _add_source_flags(p: argparse.ArgumentParser) -> None:
         action="store_true",
         help="use deterministic fixture sources + mock market (no network)",
     )
-
-
-def _add_refused_flags(p: argparse.ArgumentParser, command: str) -> None:
-    """Flags of the reference (taking a value) that the port refuses on
-    ``command``."""
-    for flag, item in _NOT_PORTED[command].items():
-        p.add_argument(
-            flag, default=None,
-            help=f"not ported yet (ROADMAP item {item}); refused",
-        )
 
 
 def _distributed_flags(p: argparse.ArgumentParser) -> None:
@@ -284,7 +261,12 @@ def build_parser() -> argparse.ArgumentParser:
         "--analyzer", action="store_true",
         help="also distill the lexicon analyzer into a neural head",
     )
-    _add_refused_flags(p, "train")
+    p.add_argument(
+        "--mesh", default=None, metavar="DxM",
+        help="train over a device mesh: data x model ('2x4'); params go "
+        "tensor-parallel (Megatron split) over the model axis, batches "
+        "data-parallel; requires that many devices",
+    )
     _add_device_flag(p, "the encoder trains")
 
     p = sub.add_parser(
@@ -365,14 +347,6 @@ def build_parser() -> argparse.ArgumentParser:
     _distributed_flags(p)
     _add_device_flag(p, "the index is served and the analysis tools aggregate")
     return parser
-
-
-def _refused(args) -> Optional[str]:
-    """The error for the first refused flag given, if any."""
-    for flag in _NOT_PORTED.get(args.command, {}):
-        if getattr(args, flag[2:], None):
-            return not_ported(args.command, flag)
-    return None
 
 
 def sharded_kernel_name(kernel: Optional[str]) -> Optional[str]:
@@ -945,9 +919,6 @@ def run_train(args) -> tuple[str, int]:
     from openintel_tpu_torch.models.encoder import EncoderConfig
     from openintel_tpu_torch.models.train import train_encoder
 
-    refused = _refused(args)
-    if refused:
-        return refused, 1
     texts = read_corpus(args.corpus)
     if not texts:
         return "error: corpus is empty", 1
@@ -967,6 +938,20 @@ def run_train(args) -> tuple[str, int]:
             synonym_map[parts[0].strip()] = parts[1].strip()
         logs.append(f"synonyms: {len(synonym_map)} pairs, flip_p={args.flip_p}")
     cfg = EncoderConfig(dim=args.dim, depth=args.depth, heads=args.heads)
+    mesh = None
+    if args.mesh:
+        from openintel_tpu_torch.parallel.mesh import default_devices, make_mesh
+        from openintel_tpu_torch.parallel.retriever import parse_mesh_spec
+
+        try:
+            data, model = parse_mesh_spec(args.mesh)
+            # a mesh smaller than the devices there are is fine: take the
+            # first data*model of them (same rule as search --mesh)
+            devices = default_devices(args.device, data * model)[: data * model]
+            mesh = make_mesh(data=data, corpus=model, devices=devices)
+        except ValueError as e:
+            return f"error: --mesh {args.mesh}: {e}", 1
+        logs.append(f"mesh: data={data} x model={model}")
     try:
         res = train_encoder(
             texts,
@@ -977,6 +962,7 @@ def run_train(args) -> tuple[str, int]:
             seed=args.seed,
             ckpt_dir=args.out,
             log=logs.append,
+            mesh=mesh,
             synonym_map=synonym_map,
             flip_p=args.flip_p,
             device=args.device,

@@ -29,8 +29,11 @@ The port cannot draw ``jax.random``'s numbers: ``init_params`` draws from
 a ``torch.Generator`` with the reference's distributions and scales, so
 one seed gives other untrained weights in the two packages. Weights move
 between the packages through checkpoints (``models/checkpoint.py``) or
-``convert.encoder_params``. ``param_partition_specs`` (tensor-parallel
-layouts over a mesh) waits for ROADMAP item 13b.
+``convert.encoder_params``. ``param_partition_specs`` is the
+reference's tensor-parallel layout over a mesh's model axis (the Megatron
+split); :mod:`openintel_tpu_torch.parallel.tensor` shards the trunk by it
+and runs the sublayers below, :func:`attention` and :func:`mlp`, on each
+shard's heads and MLP columns.
 """
 
 from __future__ import annotations
@@ -131,20 +134,27 @@ def init_params(generator: torch.Generator, cfg: EncoderConfig, device=None) -> 
     return model.to(device) if device is not None else model
 
 
-def param_tree(model: Encoder, leaf=lambda p: p) -> dict:
-    """``model``'s parameters in the reference's params layout (``tok_emb``,
-    ``pos_emb``, ``blocks`` a list of dicts, ``ln_f``), each leaf
-    ``leaf(parameter)``: the tree the checkpoint flattens."""
+def nest(named, depth: int) -> dict:
+    """(dotted parameter name, value) pairs as a tree in the reference's
+    params layout (``tok_emb``, ``pos_emb``, ``blocks`` a list of
+    ``depth`` dicts, ``ln_f``)."""
     tree: dict = {}
-    for name, p in model.named_parameters():
+    for name, value in named:
         *path, last = name.split(".")
         node = tree
         for part in path:
             node = node.setdefault(part, {})
-        node[last] = leaf(p)
+        node[last] = value
     blocks = tree.pop("blocks", {})
-    tree["blocks"] = [blocks[str(i)] for i in range(len(model.blocks))]
+    tree["blocks"] = [blocks[str(i)] for i in range(depth)]
     return tree
+
+
+def param_tree(model: Encoder, leaf=lambda p: p) -> dict:
+    """``model``'s parameters in the reference's params layout (``tok_emb``,
+    ``pos_emb``, ``blocks`` a list of dicts, ``ln_f``), each leaf
+    ``leaf(parameter)``: the tree the checkpoint flattens."""
+    return nest(((name, leaf(p)) for name, p in model.named_parameters()), len(model.blocks))
 
 
 def load_param_tree(model: Encoder, tree) -> Encoder:
@@ -169,26 +179,51 @@ def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return a.to(dt) @ w.to(dt)
 
 
-def _ln(x: torch.Tensor, p: LayerNorm, dtype: torch.dtype) -> torch.Tensor:
+def _ln(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     m = x.mean(dim=-1, keepdim=True)
     v = x.var(dim=-1, keepdim=True, unbiased=False)
-    return (x - m) * torch.rsqrt(v + 1e-6) * p.g.to(dtype) + p.b.to(dtype)
+    return (x - m) * torch.rsqrt(v + 1e-6) * g.to(dtype) + b.to(dtype)
+
+
+def attention(y, mask, qkv, proj, heads: int, head_dim: int, dtype) -> torch.Tensor:
+    """The attention sublayer's ``o @ proj`` over ``heads`` heads: ``qkv``'s
+    columns are q, k and v in turn, each ``heads * head_dim`` wide and
+    ordered by head, and ``proj``'s rows follow o's columns."""
+    b, s, _ = y.shape
+    qkv = _mm(y, qkv.to(dtype)).reshape(b, s, 3, heads, head_dim)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (b, s, h, hd)
+    # the reference divides by a float64 numpy scalar: the scores are f32
+    att = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(head_dim)
+    att = torch.where(mask[:, None, None, :], att, -1e9)
+    att = torch.softmax(att, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", att, v.to(att.dtype)).reshape(b, s, heads * head_dim)
+    return _mm(o, proj.to(dtype))
+
+
+def mlp(y, fc1, fc2, dtype) -> torch.Tensor:
+    """The MLP sublayer: ``gelu(y @ fc1) @ fc2`` (tanh GELU)."""
+    return _mm(F.gelu(_mm(y, fc1.to(dtype)), approximate="tanh"), fc2.to(dtype))
 
 
 def _block(x: torch.Tensor, mask: torch.Tensor, p: Block, cfg: EncoderConfig, dtype) -> torch.Tensor:
-    b, s, d = x.shape
-    h, hd = cfg.heads, cfg.head_dim
-    y = _ln(x, p.ln1, dtype)
-    qkv = _mm(y, p.qkv.to(dtype)).reshape(b, s, 3, h, hd)
-    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (b, s, h, hd)
-    # the reference divides by a float64 numpy scalar: the scores are f32
-    att = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(hd)
-    att = torch.where(mask[:, None, None, :], att, -1e9)
-    att = torch.softmax(att, dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", att, v.to(att.dtype)).reshape(b, s, d)
-    x = x + _mm(o, p.proj.to(dtype))
-    y = _ln(x, p.ln2, dtype)
-    return x + _mm(F.gelu(_mm(y, p.fc1.to(dtype)), approximate="tanh"), p.fc2.to(dtype))
+    y = _ln(x, p.ln1.g, p.ln1.b, dtype)
+    x = x + attention(y, mask, p.qkv, p.proj, cfg.heads, cfg.head_dim, dtype)
+    return x + mlp(_ln(x, p.ln2.g, p.ln2.b, dtype), p.fc1, p.fc2, dtype)
+
+
+def embed(tok_emb: torch.Tensor, pos_emb: torch.Tensor, ids: torch.Tensor, dtype) -> torch.Tensor:
+    """Token and position embeddings of (B, S) ids, in the compute dtype."""
+    return (tok_emb[ids.long()] + pos_emb[: ids.shape[1]][None]).to(dtype)
+
+
+def pool(x: torch.Tensor, mask: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The final layer norm (f32), mean pooling over the mask and the L2
+    norm: (B, S, dim) -> (B, dim)."""
+    x = _ln(x.float(), g, b, torch.float32)
+    maskf = mask.to(x.dtype)
+    denom = torch.clamp(mask.sum(dim=1, keepdim=True), min=1).to(x.dtype)
+    pooled = (x * maskf[:, :, None]).sum(dim=1) / denom
+    return pooled / torch.clamp(torch.linalg.norm(pooled, dim=1, keepdim=True), min=1e-6)
 
 
 def encode(model: Encoder, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -197,15 +232,36 @@ def encode(model: Encoder, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tenso
     dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
     if ids.is_cuda:
         require_true_f32()
-    x = model.tok_emb[ids.long()] + model.pos_emb[: ids.shape[1]][None]
-    x = x.to(dtype)
+    x = embed(model.tok_emb, model.pos_emb, ids, dtype)
     for p in model.blocks:
         x = _block(x, mask, p, cfg, dtype)
-    x = _ln(x.float(), model.ln_f, torch.float32)
-    maskf = mask.to(x.dtype)
-    denom = torch.clamp(mask.sum(dim=1, keepdim=True), min=1).to(x.dtype)
-    pooled = (x * maskf[:, :, None]).sum(dim=1) / denom
-    return pooled / torch.clamp(torch.linalg.norm(pooled, dim=1, keepdim=True), min=1e-6)
+    return pool(x, mask, model.ln_f.g, model.ln_f.b)
+
+
+def param_partition_specs(cfg: EncoderConfig, model_axis: str = "corpus") -> dict:
+    """The reference's ``PartitionSpec`` tree for tensor-parallel params
+    over ``model_axis``: ``qkv`` and ``fc1`` split their columns, ``proj``
+    and ``fc2`` their rows (the Megatron layout: one sum over the axis per
+    sublayer), embeddings and layer norms replicated. The shards'
+    contents are :mod:`openintel_tpu_torch.parallel.tensor`'s, which cuts
+    ``qkv`` by head."""
+    from openintel_tpu_torch.parallel.mesh import PartitionSpec as P
+
+    rep = P()
+    block = {
+        "ln1": {"g": rep, "b": rep},
+        "qkv": P(None, model_axis),
+        "proj": P(model_axis, None),
+        "ln2": {"g": rep, "b": rep},
+        "fc1": P(None, model_axis),
+        "fc2": P(model_axis, None),
+    }
+    return {
+        "tok_emb": rep,
+        "pos_emb": rep,
+        "blocks": [block] * cfg.depth,
+        "ln_f": {"g": rep, "b": rep},
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -215,8 +271,11 @@ def encode(model: Encoder, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tenso
 
 def info_nce_loss(model: Encoder, q_ids, q_mask, d_ids, d_mask, temp: float = 0.05) -> torch.Tensor:
     """Symmetric in-batch-negatives contrastive loss over (query, doc) pairs."""
-    qe = encode(model, q_ids, q_mask)
-    de = encode(model, d_ids, d_mask)
+    return contrastive_loss(encode(model, q_ids, q_mask), encode(model, d_ids, d_mask), temp)
+
+
+def contrastive_loss(qe: torch.Tensor, de: torch.Tensor, temp: float = 0.05) -> torch.Tensor:
+    """The symmetric InfoNCE loss of (B, dim) query and doc embeddings."""
     logits = qe @ de.T / temp  # (B, B); diagonal = positives
     diag = torch.arange(qe.shape[0], device=qe.device)
     l_qd = torch.mean(-torch.log_softmax(logits, dim=1)[diag, diag])

@@ -13,8 +13,17 @@ mu, nu),)}`` under optax's keys (``opt/0/.count``, ``opt/0/.mu/...``,
 ``opt/0/.nu/...``), which are torch AdamW's ``step``, ``exp_avg`` and
 ``exp_avg_sq``: a run resumes in either package. Batches are drawn from
 ``default_rng(seed + start_step)``, as in the reference, so both packages
-draw the same batches. Training over a device mesh (the encoder's tensor
-parallelism) waits for ROADMAP item 13b.
+draw the same batches.
+
+With ``mesh`` (a ``parallel.mesh.Mesh``), the run is data parallel over
+the "data" axis and tensor parallel (the Megatron split,
+:mod:`openintel_tpu_torch.parallel.tensor`) over "corpus", as the
+reference's: the full weights are drawn (or loaded) first and then cut
+into per-shard masters, the InfoNCE loss is over the global batch, and
+AdamW's moments are sharded like their params (the update is
+elementwise, so each shard's step is the full step's). The checkpoint is
+gathered into the reference's layout, so it resumes on any mesh or none,
+in either package.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from openintel_tpu_torch.models.encoder import (
     load_param_tree,
     param_tree,
 )
+from openintel_tpu_torch.parallel import tensor as tp
 
 # optax.adamw's defaults
 BETAS, EPS, WEIGHT_DECAY = (0.9, 0.999), 1e-8, 1e-4
@@ -92,39 +102,72 @@ def make_pairs(
     return pad(q_ids, 0), pad(q_mask, False), pad(d_ids, 0), pad(d_mask, False)
 
 
-def state_tree(model: Encoder, opt: Optional[torch.optim.Optimizer] = None) -> dict:
+def _tree(model, leaf) -> dict:
+    """``model``'s parameters (an ``Encoder`` or a ``ShardedEncoder``,
+    gathered) in the reference's params layout, each leaf ``leaf(p)``."""
+    return model.tree(leaf) if isinstance(model, tp.ShardedEncoder) else param_tree(model, leaf)
+
+
+def state_tree(model, opt: Optional[torch.optim.Optimizer] = None) -> dict:
     """The checkpoint's tree: ``model``'s params and the optimizer's state
-    under optax's names. Without ``opt``, a template of the right shapes
-    (count 0, the moments the params themselves)."""
+    under optax's names, a sharded model's gathered into the reference's
+    arrays. Without ``opt``, a template of the right shapes (count 0, the
+    moments the params themselves)."""
+    params = _tree(model, lambda p: p.detach())
     if opt is None:
-        count, mu, nu = np.zeros((), np.int32), param_tree(model), param_tree(model)
+        count, mu, nu = np.zeros((), np.int32), params, params
     else:
-        count = np.int32(int(opt.state[next(model.parameters())]["step"]))
-        mu = param_tree(model, lambda p: opt.state[p]["exp_avg"])
-        nu = param_tree(model, lambda p: opt.state[p]["exp_avg_sq"])
-    return {"params": param_tree(model), "opt": (ScaleByAdamState(count, mu, nu),)}
+        count = np.int32(int(opt.state[next(iter(model.parameters()))]["step"]))
+        mu = _tree(model, lambda p: opt.state[p]["exp_avg"])
+        nu = _tree(model, lambda p: opt.state[p]["exp_avg_sq"])
+    return {"params": params, "opt": (ScaleByAdamState(count, mu, nu),)}
 
 
-def _restore(model: Encoder, opt: torch.optim.Optimizer, loaded: dict) -> None:
+def _restore(model, opt: torch.optim.Optimizer, loaded: dict) -> None:
     """A loaded checkpoint into ``model`` and AdamW's state (optax's count
-    is AdamW's ``step``, mu its ``exp_avg``, nu its ``exp_avg_sq``)."""
-    load_param_tree(model, loaded["params"])
+    is AdamW's ``step``, mu its ``exp_avg``, nu its ``exp_avg_sq``); on a
+    ``ShardedEncoder`` each array is cut into its masters' shards."""
     adam = loaded["opt"][0]
-    named = dict(model.named_parameters())
-    nu = flatten(adam.nu)
-    for key, mu in flatten(adam.mu).items():
-        p = named[key.replace("/", ".")]
-        opt.state[p] = {
-            "step": torch.tensor(float(adam.count), dtype=torch.float32),
-            "exp_avg": torch.from_numpy(mu).to(p.device),
-            "exp_avg_sq": torch.from_numpy(nu[key]).to(p.device),
-        }
+    if isinstance(model, tp.ShardedEncoder):
+        params, mu, nu = (
+            tp.flat_leaves(tp.shard_tree(t, model.parts)) for t in (loaded["params"], adam.mu, adam.nu)
+        )
+        slots = [(p, params[k][m], mu[k][m], nu[k][m]) for k, m, p in model.named_masters()]
+    else:
+        named = dict(model.named_parameters())
+        params, mu, nu = (flatten(t) for t in (loaded["params"], adam.mu, adam.nu))
+        slots = [
+            (named[k.replace("/", ".")], *(torch.from_numpy(t[k]) for t in (params, mu, nu)))
+            for k in params
+        ]
+    with torch.no_grad():
+        for p, value, m1, m2 in slots:
+            p.copy_(value)
+            opt.state[p] = {
+                "step": torch.tensor(float(adam.count), dtype=torch.float32),
+                "exp_avg": m1.to(p.device),
+                "exp_avg_sq": m2.to(p.device),
+            }
 
 
-def _adamw(model: Encoder, lr: float) -> torch.optim.AdamW:
+def _adamw(model, lr: float) -> torch.optim.AdamW:
     return torch.optim.AdamW(
         model.parameters(), lr=lr, betas=BETAS, eps=EPS, weight_decay=WEIGHT_DECAY
     )
+
+
+def _check_mesh(mesh, cfg: EncoderConfig, batch_size: int, device: torch.device) -> None:
+    """The reference's refusals (its texts), then the port's: a mesh over
+    several processes, a ``device`` of another type than the mesh's."""
+    tp.check_mesh(cfg, mesh)
+    data = mesh.shape["data"]
+    if batch_size % data:
+        raise ValueError(f"batch size {batch_size} must divide by the data axis ({data})")
+    if mesh.home.type != device.type:
+        raise ValueError(
+            f"device {device.type!r} is not the mesh's ({mesh.home.type!r}): a mesh trains on "
+            "its own cells"
+        )
 
 
 def train_encoder(
@@ -144,17 +187,19 @@ def train_encoder(
     device="cuda",
 ) -> TrainResult:
     """Train (or resume) the encoder on ``device`` (the card unless the
-    caller asks for the CPU); returns the trained ``Encoder`` and the loss
-    of each step run. A checkpoint at or past ``steps`` is left as it is,
-    meta included, and nothing runs."""
-    if mesh is not None:
-        raise ValueError(
-            "training over a device mesh is not ported to the PyTorch "
-            "package yet (ROADMAP item 13b)"
-        )
+    caller asks for the CPU), or over ``mesh``'s cells (``device`` then
+    names their type); returns the trained ``Encoder`` (gathered on the
+    mesh's home device) and the loss of each step run. A checkpoint at or
+    past ``steps`` is left as it is, meta included, and nothing runs."""
     cfg = cfg or EncoderConfig()
     device = torch.device(device)
-    model = init_params(torch.Generator().manual_seed(seed), cfg, device)
+    if mesh is not None:
+        _check_mesh(mesh, cfg, batch_size, device)
+    # the full weights first, then (on a mesh) their shards: one seed
+    # starts a mesh run and a one-device run from the same weights
+    model = init_params(torch.Generator().manual_seed(seed), cfg, device if mesh is None else None)
+    if mesh is not None:
+        model = tp.shard_encoder(model, mesh)
     opt = _adamw(model, lr)
 
     start_step = 0
@@ -167,22 +212,30 @@ def train_encoder(
         if log:
             log(f"resumed from step {start_step}")
 
+    def result(losses, step):
+        params = tp.gather_encoder(model) if mesh is not None else model
+        return TrainResult(params=params, losses=losses, step=step)
+
     # checkpoint already at/past the request: no-op, and the meta is NOT
     # rewritten with a smaller step (a later longer run would otherwise
     # retrain on already-trained params)
     if start_step >= steps:
-        return TrainResult(params=model, losses=[], step=start_step)
+        return result([], start_step)
 
-    embedder = NeuralEmbedder(cfg, model, device=device)  # its tokenizer
+    if mesh is None:
+        embedder, loss_fn, batch_device = NeuralEmbedder(cfg, model, device=device), info_nce_loss, device
+    else:  # the embedder only tokenizes here, so its weights may be zeros
+        embedder = NeuralEmbedder(cfg, Encoder(cfg), device="cpu")
+        loss_fn, batch_device = tp.info_nce_loss, mesh.home
     rng = np.random.default_rng(seed + start_step)
     losses: list[float] = []
     for step in range(start_step, steps):
         batch = make_pairs(
             texts, embedder, batch_size, rng,
-            synonym_map=synonym_map, flip_p=flip_p, device=device,
+            synonym_map=synonym_map, flip_p=flip_p, device=batch_device,
         )
         opt.zero_grad(set_to_none=True)
-        loss = info_nce_loss(model, *batch)
+        loss = loss_fn(model, *batch)
         loss.backward()
         opt.step()
         losses.append(loss.item())
@@ -192,7 +245,7 @@ def train_encoder(
             save_params(state_tree(model, opt), ckpt_path, config=cfg, step=step + 1)
     if ckpt_path is not None:
         save_params(state_tree(model, opt), ckpt_path, config=cfg, step=steps)
-    return TrainResult(params=model, losses=losses, step=steps)
+    return result(losses, steps)
 
 
 def load_embedder(ckpt_dir: str | Path, device="cuda") -> NeuralEmbedder:

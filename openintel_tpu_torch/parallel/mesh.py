@@ -20,6 +20,11 @@ Which devices a mesh spans (:func:`make_mesh`):
 - on the CPU, the host stands in for as many devices as the mesh asks
   (the reference's test host does the same with virtual CPU devices);
 - an explicit ``devices=`` list, which may repeat a device.
+
+:class:`PartitionSpec` names, per dimension of an array, the mesh axis it
+is split over (``None``: not split), as ``jax.sharding.PartitionSpec``
+does; the encoder's tensor-parallel layout
+(``models.encoder.param_partition_specs``) is a tree of them.
 """
 
 from __future__ import annotations
@@ -31,6 +36,17 @@ import torch
 
 DATA_AXIS = "data"
 CORPUS_AXIS = "corpus"
+
+
+class PartitionSpec(tuple):
+    """Per array dimension, the mesh axis it is split over, or None: a
+    tuple, so ``PartitionSpec(None, "corpus") == (None, "corpus")``."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec({', '.join(map(repr, self))})"
 
 
 class Mesh:

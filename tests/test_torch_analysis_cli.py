@@ -421,9 +421,8 @@ def _subcommands(parser):
 
 def test_every_reference_subcommand_and_flag_is_accepted():
     """Every subcommand of the reference, with its flags and defaults; the
-    port adds ``--device``, refuses ``train --mesh`` (ROADMAP item 13b)
-    and takes the multi-process flags of ``search``, ``index`` and
-    ``mcp`` with the reference's defaults."""
+    port adds ``--device`` and takes the multi-process flags of
+    ``search``, ``index`` and ``mcp`` with the reference's defaults."""
     t_sub, j_sub = _subcommands(tcli.build_parser()), _subcommands(jcli.build_parser())
     assert sorted(t_sub) == sorted(j_sub)
     for name, j_parser in j_sub.items():

@@ -20,8 +20,11 @@ without the docs sidecar; ``train --reranker``/``--analyzer`` print the
 reference's log lines (the losses are the port's own draws) and write
 checkpoints the reference loads; from the same encoder checkpoint and the
 same heads, their final losses agree within 1e-4. ``search --mesh``
-(ROADMAP item 13) fails on a bad spec as the reference does; ``train
---mesh`` (item 13b) is refused with exit code 1 and its item.
+(ROADMAP item 13) fails on a bad spec as the reference does. ``train
+--mesh 2x4`` prints the reference's log lines (each side's losses
+masked) and writes a checkpoint the other package loads, with the
+analyzer and reranker heads too; a bad spec or a model axis that does
+not divide the heads fails with the reference's exit code and text.
 """
 
 import json
@@ -250,15 +253,11 @@ def test_search_errors_match_the_reference(served, capsys, tmp_path):
 @pytest.mark.parametrize("flag,item", [("--mesh", 13)])
 def test_unported_search_flags_are_refused(served, capsys, flag, item):
     """``search``'s last refused flag, ``--mesh`` (ROADMAP item 13), is
-    ported: ``search`` refuses no flag, and a bad spec fails with the
-    reference's exit code and text."""
-    from openintel_tpu_torch.cli.main import _NOT_PORTED
-
+    ported: a bad spec fails with the reference's exit code and text."""
     out, code = port(capsys, "search", "t3", "--index", str(served), flag, "x")
     j_out, j_code = ref(capsys, "search", "t3", "--index", str(served), flag, "x")
     assert code == j_code == 1 and out == j_out
     assert out.startswith(f"error: {flag} x: ") and f"item {item}" not in out
-    assert "search" not in _NOT_PORTED
 
 
 def test_parse_id_list_matches_the_reference():
@@ -312,15 +311,66 @@ def test_port_train_checkpoint_loads_in_the_reference(encoder, capsys):
     assert code == 1 and out.strip() == "error: file not found: nope.txt"
 
 
-# the case's id names the item it had before the item was split
-@pytest.mark.parametrize("flag,item", [pytest.param("--mesh", "13b", id="--mesh-13")])
-def test_unported_train_flags_are_refused(indexed, capsys, tmp_path, flag, item):
+MESH_TRAIN = ["--dim", "32", "--depth", "1", "--heads", "4", "--steps", "4", "--batch-size", "8"]
+
+
+def test_train_mesh_prints_the_reference_lines(indexed, capsys, tmp_path):
+    """``train --mesh 2x4`` on both CLIs (the port's on 8 host stand-ins,
+    the reference's on conftest's 8 virtual devices): the same log lines
+    up to the loss digits, the same files, and each checkpoint serves in
+    the other package."""
+    from openintel_tpu.models.train import load_embedder as jload
+    from openintel_tpu_torch.models.train import load_embedder as tload
+
     d, corpus = indexed
-    argv = ["train", str(corpus), "--out", str(tmp_path / "ck"), flag, "2x4"]
-    out, code = port(capsys, *argv)
-    assert code == 1
-    assert out.strip() == f"error: {flag} is not ported to the PyTorch package yet (ROADMAP item {item})"
-    assert not (tmp_path / "ck").exists()
+    outs = {}
+    for side, fn in (("t", port), ("j", ref)):
+        text, code = fn(capsys, "train", str(corpus), "--out", str(tmp_path / side), "--mesh", "2x4", *MESH_TRAIN)
+        assert code == 0, text
+        outs[side] = _mask_numbers(text.replace(str(tmp_path / side), "CK"))
+    assert outs["t"] == outs["j"] and outs["t"].startswith("mesh: data=2 x model=4\n")
+    with np.load(tmp_path / "t" / "encoder.npz") as a, np.load(tmp_path / "j" / "encoder.npz") as b:
+        assert {k: a[k].shape for k in a.files} == {k: b[k].shape for k in b.files}
+    texts = ["t3 t17 t90", "t5", ""]
+    for side in ("t", "j"):
+        np.testing.assert_allclose(
+            tload(tmp_path / side, device="cpu")(texts), jload(tmp_path / side)(texts), rtol=0, atol=ENC_TOL
+        )
+
+
+@pytest.mark.parametrize("spec", ["x", "0x4", "1x3"])
+def test_train_mesh_errors_match_the_reference(indexed, capsys, tmp_path, spec):
+    """A spec that does not parse, a zero axis, and a model axis of 3 that
+    does not divide 4 heads: exit 1 and the reference's text, no
+    checkpoint."""
+    d, corpus = indexed
+    got = port(capsys, "train", str(corpus), "--out", str(tmp_path / "t"), "--mesh", spec, *MESH_TRAIN)
+    want = ref(capsys, "train", str(corpus), "--out", str(tmp_path / "j"), "--mesh", spec, *MESH_TRAIN)
+    assert got[1] == want[1] == 1 and got[0] == want[0] and got[0].startswith("error: ")
+    assert not (tmp_path / "t").exists()
+
+
+def test_train_mesh_with_heads_writes_loadable_heads(indexed, capsys, tmp_path):
+    """``train --mesh 2x4 --analyzer --reranker``: the gathered encoder
+    hands off to both heads, which are written and load in both
+    packages."""
+    from openintel_tpu.models.neural_analyzer import load_analyzer
+    from openintel_tpu.models.reranker import load_reranker
+    from openintel_tpu_torch.models.neural_analyzer import load_analyzer as t_load_analyzer
+    from openintel_tpu_torch.models.reranker import load_reranker as t_load_reranker
+
+    d, corpus = indexed
+    text, code = port(capsys, "train", str(corpus), "--out", str(tmp_path), "--mesh", "2x4", *MESH_TRAIN,
+                      "--analyzer", "--reranker")
+    assert code == 0, text
+    assert "analyzer head distilled (20 steps" in text and "reranker trained (10 steps" in text
+    texts = ["moon calls", "crash dump puts"]
+    np.testing.assert_allclose(
+        [s.polarity.value for s in load_analyzer(tmp_path).score_texts(texts)],
+        [s.polarity.value for s in t_load_analyzer(tmp_path, device="cpu").score_texts(texts)],
+        rtol=0, atol=1e-5,
+    )
+    assert load_reranker(tmp_path).cfg.dim == t_load_reranker(tmp_path, device="cpu").cfg.dim == 32
 
 
 @pytest.mark.parametrize("flags", [[], ["--bf16"], ["--chunk-docs", "64", "--resume-dir", "{side}_rck"]])

@@ -75,6 +75,7 @@ SLICE = [
     "openintel_tpu_torch.parallel.mesh",
     "openintel_tpu_torch.parallel.retriever",
     "openintel_tpu_torch.parallel.sharded",
+    "openintel_tpu_torch.parallel.tensor",
     "openintel_tpu_torch.parallel.updatable",
     "openintel_tpu_torch.sources",
     "openintel_tpu_torch.sources.bluesky",
@@ -364,6 +365,41 @@ def test_port_parallel_serving_imports_nothing_of_jax_or_ml_dtypes(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu")
     res = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "ok"
+
+
+def test_port_mesh_training_imports_nothing_of_jax_or_ml_dtypes(tmp_path):
+    """``train_encoder`` over a 2x2 CPU mesh (params tensor parallel, a
+    resume on one device) and ``train --mesh 1x2`` through the CLI, in a
+    subprocess: no ``jax``, no ``openintel_tpu`` and no ``ml_dtypes``
+    module is loaded, and no card is touched."""
+    code = (
+        "import contextlib, io, sys, torch\n"
+        "from openintel_tpu_torch.cli.main import main\n"
+        "from openintel_tpu_torch.models.encoder import EncoderConfig\n"
+        "from openintel_tpu_torch.models.train import train_encoder\n"
+        "from openintel_tpu_torch.parallel.mesh import make_mesh\n"
+        "docs = ['apple beats earnings', 'nvda to the moon', 'rates rise again'] * 3\n"
+        "cfg = EncoderConfig(vocab_size=64, dim=16, depth=1, heads=2, max_len=8)\n"
+        "mesh = make_mesh(data=2, corpus=2, device='cpu')\n"
+        "res = train_encoder(docs, cfg, steps=2, batch_size=4, mesh=mesh, ckpt_dir='ck', device='cpu')\n"
+        "assert len(res.losses) == 2\n"
+        "assert len(train_encoder(docs, cfg, steps=3, batch_size=4, ckpt_dir='ck', device='cpu').losses) == 1\n"
+        "open('c.txt', 'w').write('\\n'.join(docs))\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    assert main(['train', 'c.txt', '--out', 'ck2', '--mesh', '1x2', '--dim', '16', '--depth', '1',\n"
+        "                 '--heads', '2', '--steps', '2', '--batch-size', '3', '--device', 'cpu']) == 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'openintel_tpu', 'ml_dtypes'))\n"
+        "assert not bad, bad\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu")
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, env=env,
         capture_output=True, text=True, timeout=120,
     )
     assert res.returncode == 0, res.stderr[-3000:]

@@ -10,8 +10,8 @@ for the losses; the products sum in other orders: the first runs differ
 by about 1e-6 and 4e-7). A JAX-trained checkpoint served by the port's
 ``load_embedder`` embeds within 1e-5 of the reference's. ``make_pairs``
 draws the reference's batches bit for bit. Every test of
-``tests/test_train.py`` has a counterpart here but the mesh one (ROADMAP
-item 13).
+``tests/test_train.py`` has a counterpart here but the mesh one, whose
+counterparts are in ``tests/test_torch_tensor_parallel.py``.
 """
 
 import filecmp
@@ -255,11 +255,6 @@ def test_contrastive_training_generalises_past_lexical_overlap():
     p_after = topic_precision(NeuralEmbedder(cfg, res.params, device=CPU))
     assert p_after > p_before + 0.2, (p_before, p_after)
     assert p_after >= 0.6, (p_before, p_after)
-
-
-def test_mesh_training_is_refused_with_its_roadmap_item():
-    with pytest.raises(ValueError, match="ROADMAP item 13b"):
-        train_encoder(TEXTS, CFG, steps=1, batch_size=4, mesh=object(), device=CPU)
 
 
 def test_synonym_flip_machinery():
