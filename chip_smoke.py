@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's hybrid search on one NVIDIA card and check it.
 
-    python3 chip_smoke.py            # all phases (one card, ~9-14 min)
+    python3 chip_smoke.py            # all phases (one card, ~10-15 min)
     python3 chip_smoke.py --quick    # build + kernel-vs-twin checks only
     python3 chip_smoke.py --profile  # all phases, and a profile of each path
 
 Phases, one line of output each (any failed check raises, exit code != 0),
 run in the order 1, 2, 3, 6, 7, 10 (the kernel checks; ``--quick`` stops
-there), then 4, 5, 12, 13, 8, 9, 11, 14, 15, 16, 17, 18, 19, 20, 21, 22
-(the paths):
+there), then 4, 5, 12, 13, 8, 9, 11, 14, 15, 16, 17, 18, 19, 20, 21, 22,
+23 (the paths):
 
 1. environment: the card, torch and CUDA versions, the kernel build (nvcc,
    ``openintel_tpu_torch/csrc``) and the C++ query planner;
@@ -248,7 +248,23 @@ there), then 4, 5, 12, 13, 8, 9, 11, 14, 15, 16, 17, 18, 19, 20, 21, 22
    --encoder`` of the 100,000 docs with that checkpoint and ``search
    --encoder`` through the CLI and the library path as in phase 18
    (kernel A's cells and kernel B against their twins, recall@10 against
-   the exact path >= 0.95).
+   the exact path >= 0.95);
+23. the measurement tools of the reference's scripts
+   (``openintel_tpu_torch.tools``): kernel C2 at B = 512 and 1,024 over
+   32,768 docs, its cells and ``dense_topk_fast_i8`` bit-identical to the
+   twin and timed beside B = 256; ``dense_topk_fast_i4`` (kernel E2) on the
+   int4 corpus of scales 32 and 40 at B = 256 and 1,024, k = 128 and 256,
+   cells and decode bit-identical to the plain run; then each tool's
+   command once at a small size on the card, its JSON stamped ``cuda`` and
+   the card: ``profile_planner`` (65,536 docs), ``coalescer`` (4 callers
+   for 1 s) and ``arrival`` (2 fractions of 0.5 s) on the int8 arm over
+   131,072 docs (kernel A), ``encoder_quality`` (5,000 docs, 10 steps, 10
+   reranker steps), ``fusion_ab`` (2,000 docs), ``sharded_overhead`` (its
+   shape, 2 reps), ``batch_ab`` (1,024 queries in sub-batches of 256, 512
+   and 1,024) and ``int4_ab`` (one sub-batch of 1,024), both over 32,768
+   docs (kernels C2 and E2, recall@10 against the port's oracle >= 0.95);
+   kernels A, C2 and E2 each launched in the tools' windows, C2 and E2 as
+   often as the timed sub-batches ask.
 
 Each path runs in its own counted window: the kernel launch counts are
 zeroed just before it and read just after, and each kernel of the path
@@ -275,7 +291,9 @@ launch's time and bound, and for A the step, the filtered, rank, entry
 point and live corpus records); and phase 22's (``tensor_parallel``: the
 CLI search launches over the mesh-trained encoder's index, the time, twin
 time and bound at D = 256, and for A the training steps' times and
-profiles).
+profiles); A's, C2's and E2's carry phase 23's (``tools``: the launches
+of each tool's window, the shapes, and for C2 and E2 the times, twin times
+and bounds at the new shapes).
 
 With ``--profile``, phases 4, 8, 9, 12 (each store) and 16 (each int8
 mask) add a ``profile`` line:
@@ -355,7 +373,20 @@ from openintel_tpu_torch.parallel.mesh import make_mesh
 from openintel_tpu_torch.parallel.retriever import ShardedHybridRetriever, shard_query_plans
 from openintel_tpu_torch.parallel.updatable import ShardedUpdatableHybridRetriever
 from openintel_tpu_torch.serving import BatchCoalescer, PipelinedSearcher
-from openintel_tpu_torch.tools import common, grouped_ab, kernel_decomp, topk_reduce_ab
+from openintel_tpu_torch.tools import (
+    arrival,
+    batch_ab,
+    coalescer,
+    common,
+    encoder_quality,
+    fusion_ab,
+    grouped_ab,
+    int4_ab,
+    kernel_decomp,
+    profile_planner,
+    sharded_overhead,
+    topk_reduce_ab,
+)
 
 N_DOCS = 1_250_000  # bench.py's per-chip shard of the 10M-doc corpus
 SMALL_DOCS = 98_304  # the largest corpus that selects kernel B (6 x 16,384 docs)
@@ -5277,6 +5308,240 @@ def phase_tensor_parallel(card, state, tmp) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: the measurement tools of the reference's scripts on the card
+# ---------------------------------------------------------------------------
+
+TOOL_DOCS = 32_768  # 23.1-23.3: two supers
+TOOL_SERVE_DOCS = 131_072  # 23.3: coalescer's and arrival's corpus (pruned plans, int8 auto)
+C2_WIDE = (512, 1024)  # 23.1: C2's sub-batches above phase 10's
+E2_SCALES = (32.0, 40.0)  # 23.2: the served quantiser scale and int4_ab's second
+TOOL_REPS = 2  # 23.3: the timed tools' reps
+
+
+@contextlib.contextmanager
+def tool_env(**env):
+    """The tools' environment variables set for the block, then restored."""
+    old = {name: os.environ.get(name) for name in env}
+    os.environ.update({name: str(val) for name, val in env.items()})
+    try:
+        yield
+    finally:
+        for name, val in old.items():
+            if val is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = val
+
+
+def tools_c2_wide(card) -> dict:
+    """23.1: kernel C2 at B = 512 and 1,024 (phase 10 held it at 45 and 256)
+    over two supers: cells bit-identical to the twin, ``dense_topk_fast_i8``
+    to its plain run; its time at each width beside B = 256's, the twin's and
+    the bound."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(23)
+    i8 = convert.int8_corpus(torch.from_numpy(unit_rows(rng, TOOL_DOCS, DIM)).to(dev))
+    rec = {}
+    for b in (256, *C2_WIDE):
+        q8 = T.quantize_int8(torch.from_numpy(unit_rows(rng, b, DIM))).to(dev)
+        got = T.i8_turbo_cells(q8, i8, slots=2)
+        want = T.i8_turbo_cells_plain(q8, i8, slots=2)
+        if not torch.equal(got, want):
+            raise AssertionError(f"kernel C2 cells differ at B={b}: {int((got != want).sum())} cells")
+        kv, ki = T.dense_topk_fast_i8(i8, q8, k=C_ARM, n_docs=TOOL_DOCS)
+        pv, pi = T.dense_topk_fast_i8(i8, q8, k=C_ARM, n_docs=TOOL_DOCS, plain=True)
+        if not (torch.equal(ki, pi) and torch.equal(kv, pv)):
+            raise AssertionError(f"dense_topk_fast_i8 differs from its plain run at B={b}")
+        ms = cuda_ms(lambda: T.i8_turbo_cells(q8, i8, slots=2), 10)
+        plain_ms = cuda_ms(lambda: T.i8_turbo_cells_plain(q8, i8, slots=2), 2)
+        limit = bound((q8, i8), (got,), product_ops(q8, i8), "int8")
+        rec[b] = {"ms": ms, "plain_ms": plain_ms, **limit, "max_abs_err": 0}
+    torch.cuda.synchronize()
+    log(
+        f"phase23.1 kernel C2 at B={'/'.join(map(str, C2_WIDE))} over {TOOL_DOCS} docs x {DIM}: "
+        "cells and dense_topk_fast_i8 (k 32) bit-identical to the twin; "
+        + "; ".join(
+            f"B={b} {r['ms']:.4f} ms ({r['ms'] * 1e3 / b:.3f} us/q), twin {r['plain_ms']:.2f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+            for b, r in rec.items()
+        )
+        + f" [{card}]"
+    )
+    return rec
+
+
+def tools_e2_scales(card) -> dict:
+    """23.2: ``dense_topk_fast_i4`` (kernel E2) at k = 128 and 256 on the
+    int4 corpus of scales 32 and 40 at B = 256 and 1,024, cells and decode
+    bit-identical to the plain run; E2 timed on the scale-40 corpus at
+    B = 1,024."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(24)
+    rows = torch.from_numpy(unit_rows(rng, TOOL_DOCS, DIM)).to(dev)
+    cases = 0
+    for scale in E2_SCALES:
+        packed = convert.int4_corpus(rows, scale=scale)
+        for b in (256, 1024):
+            q8 = T.quantize_int8(torch.from_numpy(unit_rows(rng, b, DIM))).to(dev)
+            got = T.i4_cells(q8, packed, slots=2)
+            want = T.i4_cells_plain(q8, packed, slots=2)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"kernel E2 cells differ at scale {scale}, B={b}: {int((got != want).sum())} cells"
+                )
+            for k in (128, 256):
+                kv, ki = T.dense_topk_fast_i4(packed, q8, k=k, n_docs=TOOL_DOCS, scale=scale)
+                pv, pi = T.dense_topk_fast_i4(packed, q8, k=k, n_docs=TOOL_DOCS, scale=scale, plain=True)
+                if not (torch.equal(ki, pi) and torch.equal(kv, pv)):
+                    raise AssertionError(f"dense_topk_fast_i4 differs at scale {scale}, B={b}, k={k}")
+                cases += 1
+    ms = cuda_ms(lambda: T.i4_cells(q8, packed, slots=2), 10)
+    plain_ms = cuda_ms(lambda: T.i4_cells_plain(q8, packed, slots=2), 2)
+    limit = bound((q8, packed), (got,), product_ops(q8, rows), "int8")
+    torch.cuda.synchronize()
+    log(
+        f"phase23.2 kernel E2 on the int4 corpus at scales {'/'.join(f'{s:g}' for s in E2_SCALES)}, "
+        f"B 256/1024, k 128/256 over {TOOL_DOCS} docs x {DIM}: {cases} cases, cells and "
+        f"decode bit-identical to the plain run; at scale 40, B=1024: {ms:.4f} ms, twin "
+        f"{plain_ms:.2f} ms, bound {limit['bound_ms']:.4f} ms ({limit['bound_by']}) [{card}]"
+    )
+    return {"scale40_b1024": {"ms": ms, "plain_ms": plain_ms, **limit, "max_abs_err": 0}}
+
+
+def tools_run(tmp) -> dict:
+    """23.3: each tool's command once at a small size, on the card, its
+    output kept apart from this script's (its JSON read back). Returns per
+    tool (seconds, JSON, the kernel launches of its window)."""
+    cuda = ["--device", "cuda"]
+    eq = [
+        "--n-docs", "5000", "--n-concepts", "500", "--steps", "10", "--rerank-steps", "10",
+        "--queries", "100", "--ckpt-dir", f"{tmp}/eq_ck",
+    ]
+    runs = {
+        "profile_planner": ({"PROF_DOCS": 65_536}, profile_planner, []),
+        "coalescer": ({"BENCH_DOCS": TOOL_SERVE_DOCS, "BENCH_CALLERS": 4, "BENCH_SECONDS": 1},
+                      coalescer, []),
+        "arrival": ({"BENCH_DOCS": TOOL_SERVE_DOCS}, arrival,
+                    ["--duration", "0.5", "--fractions", "0.5,2.0"]),
+        "encoder_quality": ({}, encoder_quality, eq),
+        "fusion_ab": ({}, fusion_ab, ["--n-docs", "2000"]),
+        "batch_ab": ({"AB_REPS": TOOL_REPS}, batch_ab, [str(TOOL_DOCS), "1024"]),
+        "int4_ab": ({"AB_REPS": TOOL_REPS}, int4_ab, [str(TOOL_DOCS), "1024", "1"]),
+    }
+    out = {}
+    for name, (env, tool, argv) in runs.items():
+        path = f"{tmp}/{name}.json"
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with tool_env(**env), contextlib.redirect_stdout(text), contextlib.redirect_stderr(text):
+            rc, counts = counted(lambda: tool.main([*argv, *cuda, "--out", path]))
+        if rc != 0:
+            raise AssertionError(f"tools.{name} exited {rc}: {text.getvalue()[-2000:]}")
+        with open(path) as f:
+            out[name] = (time.perf_counter() - t0, json.load(f), counts)
+        free_device()
+    # the mesh tool's command takes six reps; its core takes fewer here
+    t0 = time.perf_counter()
+    doc, counts = counted(lambda: {
+        **sharded_overhead.sharded_overhead(
+            *sharded_overhead.overhead_inputs(sharded_overhead.N_SHARDS * 32_768),
+            torch.device("cuda"), reps=TOOL_REPS,
+        ),
+        **common.stamp(torch.device("cuda")),
+    })
+    out["sharded_overhead"] = (time.perf_counter() - t0, doc, counts)
+    free_device()
+    return out
+
+
+def tools_summary(name: str, doc: dict) -> str:
+    """One line of what a tool's JSON says."""
+    if name == "profile_planner":
+        lead = max(doc["phases"], key=lambda p: doc["phases"][p]["share"])
+        return f"{doc['ms_per_query']:.4f} ms/query/core, lead phase {lead}"
+    if name == "coalescer":
+        return (
+            f"{doc['served_b64_concurrent_qps']:.0f} q/s served ({doc['queries_per_wave']:.0f} "
+            f"q/wave), raw b=64 {doc['raw_b64_qps']:.0f} q/s"
+        )
+    if name == "arrival":
+        return (
+            f"direct cap {doc['direct_capacity_qps']:.0f} q/s, full wave "
+            f"{doc['coalesced_capacity_qps']:.0f} q/s"
+        )
+    if name == "encoder_quality":
+        t = doc["tables"]["mismatch"]
+        return (
+            f"mismatch recall@10 neural-dense {t['neural-dense']['recall@10']:.3f}, "
+            f"hashing-dense {t['hashing-dense']['recall@10']:.3f}"
+        )
+    if name == "fusion_ab":
+        t = doc["tables"]["hashing"]
+        return ", ".join(f"{label} {row['exact']['recall@10']:.3f}" for label, row in t.items())
+    if name == "sharded_overhead":
+        return f"overhead ratio {doc['overhead_ratio']:.3f}, matmul probe {doc['matmul_probe_ratio']:.3f}"
+    return ", ".join(
+        f"{r['label']} {r['ms_median']:.4f} ms" for r in doc["rows"] if "ms_median" in r
+    )
+
+
+def phase_tools(card) -> dict:
+    """Phase 23: kernels C2 and E2 at the tools' new shapes against their
+    twins, then each tool's command at a small size on the card. Returns the
+    ``tools`` records of kernels A, C2 and E2 for the ``kernels`` line."""
+    t0 = time.perf_counter()
+    # the planner's profile build (g++, host only) beside the card's checks
+    build = threading.Thread(target=profile_planner.build_profile_lib)
+    build.start()
+    c2 = tools_c2_wide(card)
+    e2 = tools_e2_scales(card)
+    free_device()
+    build.join()
+    with tempfile.TemporaryDirectory(prefix="oi_phase23_") as tmp:
+        runs = tools_run(tmp)
+    launches = {}
+    for name, (seconds, doc, counts) in runs.items():
+        if doc["backend"] != "cuda" or doc["card"] != card:
+            raise AssertionError(f"tools.{name} stamped {doc['backend']!r}, {doc['card']!r}")
+        launched = {k: n for k, n in counts.items() if n}
+        for kernel, n in launched.items():
+            launches.setdefault(kernel, {})[name] = n
+        log(f"phase23.3 tools.{name} ({seconds:.1f} s): {tools_summary(name, doc)}; launches {launched}")
+    ab = (TOOL_REPS + 1) * 2  # the two stages of a timed program: a warm-up rep and the reps
+    widths = sum(1024 // b for b in batch_ab.BATCHES)  # batch_ab's sub-batches of its 1,024 queries
+    want = {
+        "i8_top2g": {"coalescer", "arrival"},
+        "turbo_i8_top2": {"batch_ab", "int4_ab"},
+        "turbo_i4_top2": {"int4_ab"},
+    }
+    if {k: set(v) for k, v in launches.items()} != want:
+        raise AssertionError(f"phase 23's launches {launches}, expected kernels {want}")
+    if (launches["turbo_i8_top2"] != {"batch_ab": ab * widths, "int4_ab": ab}
+            or launches["turbo_i4_top2"] != {"int4_ab": 3 * ab}):
+        raise AssertionError(f"kernels C2/E2 launched {launches}, expected {ab} a timed sub-batch")
+    bad = [r for r in runs["int4_ab"][1]["rows"] if "recall" in r and r["recall"] < RECALL_FLOOR]
+    if bad:
+        raise AssertionError(f"int4_ab recall@10 under {RECALL_FLOOR}: {bad}")
+    log(f"phase23 done in {time.perf_counter() - t0:.1f} s [{card}]")
+
+    def record(kernel, shapes, timed=None):
+        return {"tools": {"launches": launches[kernel], "shapes": shapes, **({"timed": timed} if timed else {})}}
+
+    return {
+        "i8_top2g": record("i8_top2g", f"coalescer and arrival: the int8 arm over {TOOL_SERVE_DOCS} docs"),
+        "turbo_i8_top2": record(
+            "turbo_i8_top2", f"B=256, 512, 1024 over {TOOL_DOCS} docs (batch_ab), 1024 (int4_ab's int8 arm); "
+            "held to the twin at B=512, 1024", c2,
+        ),
+        "turbo_i4_top2": record(
+            "turbo_i4_top2", f"B=1024 at c=128, 256 and scale 40 over {TOOL_DOCS} docs (int4_ab); "
+            "held to the twin at scales 32, 40, B=256, 1024", e2,
+        ),
+    }
+
+
+
 def run(quick: bool, profile: bool) -> None:
     env = phase_environment()
     card = env["card"]
@@ -5286,7 +5551,7 @@ def run(quick: bool, profile: bool) -> None:
     phase_kernel_e()
     phase_kernel_c_s()
     if quick:
-        log("quick run: the paths (phases 4, 5, 12, 13, 8, 9, 11, 14, 15, 16, 17, 18, 19, 20, 21, 22) skipped")
+        log("quick run: the paths (phases 4, 5, 12, 13, 8, 9, 11, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23) skipped")
         return
 
     corpus = build_corpus()
@@ -5322,6 +5587,8 @@ def run(quick: bool, profile: bool) -> None:
         tensor = phase_tensor_parallel(card, state, tmp)
     del state
     free_device()
+    tools = phase_tools(card)
+    free_device()
     for entry in kernels:
         entry.update(filtered.get(entry["name"], {}))
         entry.update(entry_points.get(entry["name"], {}))
@@ -5330,6 +5597,7 @@ def run(quick: bool, profile: bool) -> None:
         entry.update(item14.get(entry["name"], {}))
         entry.update(mesh.get(entry["name"], {}))
         entry.update(tensor.get(entry["name"], {}))
+        entry.update(tools.get(entry["name"], {}))
 
     leaked = sorted(
         m for m in sys.modules

@@ -41,6 +41,7 @@ from openintel_tpu_torch.index.schema import (
 )
 from openintel_tpu_torch.models.encoder import Encoder, load_param_tree, param_tree
 from openintel_tpu_torch.ops.dense_topk import (
+    _I4_SCALE_DEFAULT,
     _TURBO_UNIT,
     _pack_pairs,
     _round_up,
@@ -119,17 +120,18 @@ def fused_corpus(rows: torch.Tensor) -> torch.Tensor:
     return pad_features(rows).contiguous()
 
 
-def int4_corpus(rows: torch.Tensor, chunk: int = 1 << 16) -> torch.Tensor:
-    """Kernels E's candidate corpus: ``quantize_int4`` of the stored rows,
-    zero-padded to a multiple of 16,384 docs (and 16 columns) and packed
-    two docs per byte, (N_pad / 2, D_pad) int8 (``pack_corpus_i4``).
-    Quantises in chunks of an even number of rows on the rows' device."""
+def int4_corpus(rows: torch.Tensor, chunk: int = 1 << 16, *, scale: float = _I4_SCALE_DEFAULT) -> torch.Tensor:
+    """Kernels E's candidate corpus: ``quantize_int4`` of the stored rows at
+    ``scale`` (the served 32 by default), zero-padded to a multiple of
+    16,384 docs (and 16 columns) and packed two docs per byte, (N_pad / 2,
+    D_pad) int8 (``pack_corpus_i4``). Quantises in chunks of an even number
+    of rows on the rows' device."""
     n, dim = rows.shape
     n_pad = _round_up(max(n, _TURBO_UNIT), _TURBO_UNIT)
     chunk += chunk % 2  # whole doc pairs
     out = torch.zeros((n_pad // 2, padded_dim(dim)), dtype=torch.int8, device=rows.device)
     for start in range(0, n, chunk):
-        x4 = quantize_int4(rows[start : start + chunk])
+        x4 = quantize_int4(rows[start : start + chunk], scale)
         if x4.shape[0] % 2:  # the last doc pairs with a zero row
             x4 = torch.cat([x4, x4.new_zeros((1, dim))])
         out[start // 2 : (start + x4.shape[0]) // 2, :dim] = _pack_pairs(x4)

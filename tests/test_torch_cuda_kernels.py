@@ -996,3 +996,55 @@ def test_atr_batch_on_the_card_matches_the_cpu_and_the_scalar_atr(cuda):
     for i in (0, 77, 511):
         bars = [Bar(float(h), float(l), float(c)) for h, l, c in zip(high[i], low[i], close[i])]
         np.testing.assert_allclose(float(card[i]), atr(bars, 14), rtol=1e-5)
+
+
+@pytest.mark.parametrize("b", [512, 1024])  # tools/batch_ab's sub-batches
+@pytest.mark.parametrize("data", ["random", "ties"])
+def test_kernel_c2_at_the_batch_tools_widths(cuda, data, b):
+    """Kernel C2 at sub-batches of 512 and 1,024 over 2 supers (the last
+    short): its cells and ``dense_topk_fast_i8`` bit for bit against the
+    plain twin, one launch a call."""
+    n = T._TURBO_UNIT + 5_000
+    rng = np.random.default_rng(41)
+    if data == "ties":  # entries in {-1, 0, 1}
+        e8 = torch.from_numpy(rng.integers(-1, 2, (n, 384)).astype(np.int8))
+        q8 = torch.from_numpy(rng.integers(-1, 2, (b, 384)).astype(np.int8))
+    else:
+        emb = synthetic_embeddings(n, dim=384, seed=42)
+        e8 = T.quantize_int8(torch.from_numpy(emb))
+        q8 = T.quantize_int8(torch.from_numpy(synthetic_query_embeddings(emb, b, seed=43)[0]))
+    corpus = T.pad_corpus_rows(e8.to(cuda))
+    q8 = q8.to(cuda)
+    before = T.launch_counts()["turbo_i8_top2"]
+    got = T.i8_turbo_cells(q8, corpus, slots=2)
+    torch.cuda.synchronize()
+    assert T.launch_counts()["turbo_i8_top2"] == before + 1
+    assert torch.equal(got, T.i8_turbo_cells_plain(q8, corpus, slots=2))
+    for k in (32, 300):
+        kv, ki = T.dense_topk_fast_i8(corpus, q8, k=k, n_docs=n)
+        pv, pi = T.dense_topk_fast_i8(corpus, q8, k=k, n_docs=n, plain=True)
+        assert torch.equal(ki, pi) and torch.equal(kv, pv)
+
+
+@pytest.mark.parametrize("b", [256, 1024])
+@pytest.mark.parametrize("scale", [32.0, 40.0])  # the served scale; tools/int4_ab's second
+def test_kernel_e2_on_the_int4_tools_corpora(cuda, scale, b):
+    """``dense_topk_fast_i4`` (kernel E2) on the int4 corpus quantised at
+    scales 32 and 40, at k = 128 and 256 (the fetches of 160 and 288) and
+    B = 256 and 1,024: cells and decode bit for bit against the plain
+    twin."""
+    n = 2 * T._TURBO_UNIT + 5_001  # ragged: the last doc pairs with padding
+    emb = synthetic_embeddings(n, dim=384, seed=44)
+    rows = torch.from_numpy(emb).to(cuda)
+    packed = convert.int4_corpus(rows, scale=scale)
+    q8 = T.quantize_int8(torch.from_numpy(synthetic_query_embeddings(emb, b, seed=45)[0])).to(cuda)
+    before = T.launch_counts()["turbo_i4_top2"]
+    got = T.i4_cells(q8, packed, slots=2)
+    torch.cuda.synchronize()
+    assert T.launch_counts()["turbo_i4_top2"] == before + 1
+    assert torch.equal(got, T.i4_cells_plain(q8, packed, slots=2))
+    for k in (128, 256):
+        kv, ki = T.dense_topk_fast_i4(packed, q8, k=k, n_docs=n, scale=scale)
+        pv, pi = T.dense_topk_fast_i4(packed, q8, k=k, n_docs=n, scale=scale, plain=True)
+        assert torch.equal(ki, pi) and torch.equal(kv, pv)
+        assert int(ki.max()) < n

@@ -69,6 +69,7 @@ SLICE = [
     "openintel_tpu_torch.ops.fusion",
     "openintel_tpu_torch.native",
     "openintel_tpu_torch.ops.ranking",
+    "openintel_tpu_torch.ops.reference",
     "openintel_tpu_torch.ops.tokenizer",
     "openintel_tpu_torch.parallel",
     "openintel_tpu_torch.parallel.distributed",
@@ -85,10 +86,18 @@ SLICE = [
     "openintel_tpu_torch.sources.x",
     "openintel_tpu_torch.sources.yahoo",
     "openintel_tpu_torch.tools",
+    "openintel_tpu_torch.tools.arrival",
+    "openintel_tpu_torch.tools.batch_ab",
+    "openintel_tpu_torch.tools.coalescer",
     "openintel_tpu_torch.tools.common",
+    "openintel_tpu_torch.tools.encoder_quality",
+    "openintel_tpu_torch.tools.fusion_ab",
     "openintel_tpu_torch.tools.grouped_ab",
+    "openintel_tpu_torch.tools.int4_ab",
     "openintel_tpu_torch.tools.kernel_decomp",
+    "openintel_tpu_torch.tools.profile_planner",
     "openintel_tpu_torch.tools.serving_ab",
+    "openintel_tpu_torch.tools.sharded_overhead",
     "openintel_tpu_torch.tools.topk_reduce_ab",
     "openintel_tpu_torch.utils",
     "openintel_tpu_torch.utils.profiling",
@@ -392,6 +401,47 @@ def test_port_mesh_training_imports_nothing_of_jax_or_ml_dtypes(tmp_path):
         "with contextlib.redirect_stdout(io.StringIO()):\n"
         "    assert main(['train', 'c.txt', '--out', 'ck2', '--mesh', '1x2', '--dim', '16', '--depth', '1',\n"
         "                 '--heads', '2', '--steps', '2', '--batch-size', '3', '--device', 'cpu']) == 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'openintel_tpu', 'ml_dtypes'))\n"
+        "assert not bad, bad\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu")
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "ok"
+
+
+def test_port_measurement_tools_import_nothing_of_jax_or_ml_dtypes(tmp_path):
+    """The eight tools of the reference's JAX scripts, each command at a tiny
+    size with ``--device cpu`` (``encoder_quality`` and ``fusion_ab``
+    through their cores' commands, the oracle through ``int4_ab``), in a
+    subprocess: no ``jax``, no ``openintel_tpu`` and no ``ml_dtypes``
+    module is loaded, no card is touched, and every JSON lands where
+    ``--out`` says."""
+    code = (
+        "import contextlib, io, os, sys, torch\n"
+        "from openintel_tpu_torch.tools import (arrival, batch_ab, coalescer, encoder_quality,\n"
+        "    fusion_ab, int4_ab, profile_planner, sharded_overhead)\n"
+        "os.environ.update(PROF_DOCS='4000', PROF_QUERIES='16', PROF_VOCAB='500', PROF_REPEATS='1',\n"
+        "    BENCH_DOCS='1000', BENCH_CALLERS='2', BENCH_SECONDS='0.1', OVH_DOCS='16384',\n"
+        "    AB_REPS='1', AB_SAMPLE='8')\n"
+        "cpu = ['--device', 'cpu']\n"
+        "batch_ab.BATCHES = (256,)  # one of the script's widths: a short CPU run\n"
+        "runs = [(profile_planner, []), (coalescer, []),\n"
+        "    (arrival, ['--duration', '0.1', '--fractions', '1', '--request-b', '8', '--max-batch', '16']),\n"
+        "    (encoder_quality, ['--n-docs', '100', '--n-concepts', '10', '--steps', '1', '--rerank-steps', '1',\n"
+        "        '--batch', '4', '--dim', '16', '--depth', '1', '--heads', '2', '--vocab', '64',\n"
+        "        '--queries', '4', '--ckpt-dir', 'ck']),\n"
+        "    (fusion_ab, ['--n-docs', '100', '--n-concepts', '10', '--queries', '4', '--dim', '16']),\n"
+        "    (sharded_overhead, []), (batch_ab, ['16384', '256']), (int4_ab, ['16384', '32', '1'])]\n"
+        "with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):\n"
+        "    for i, (tool, argv) in enumerate(runs):\n"
+        "        assert tool.main([*argv, *cpu, '--out', f'{i}.json']) == 0, tool\n"
+        "assert all(os.path.exists(f'{i}.json') for i in range(len(runs)))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'openintel_tpu', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
         "assert not torch.cuda.is_initialized()\n"
