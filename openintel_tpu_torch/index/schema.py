@@ -77,23 +77,45 @@ class PostingsIndex:
     def ensure_impact_order(self) -> np.ndarray:
         """Build (or return) the per-term impact-descending permutation.
 
-        One global lexsort keyed (term, -impact, doc) — identical to a
-        per-term lexsort but without V Python-level sort calls (a 30k-term
-        vocab at 1M+ docs stalls the first pruned query for seconds
-        otherwise)."""
+        The order of one global lexsort keyed (term, -impact, doc), built
+        as one stable sort of a single int64 key per posting, ``term << 32
+        | descending impact bits`` (:func:`_impact_key`): doc ids ascend
+        within each term, so a stable sort breaks impact ties by doc as
+        the lexsort does. Where an impact is NaN (the lexsort puts it
+        last in its term), the impacts are not float32, or the doc ids do
+        not ascend within a term, the lexsort runs itself. The span's
+        ``route`` attribute says which ran: ``"key"`` or ``"lexsort"``."""
         if self.impact_order is None:
             if self.nnz == 0:
                 self.impact_order = np.zeros(0, dtype=np.int64)
                 return self.impact_order
-            with span("setup.impact_order", n=self.nnz):
+            with span("setup.impact_order", n=self.nnz) as s:
                 seg_lens = np.diff(self.term_offsets).astype(np.int64)
                 term_of = np.repeat(
                     np.arange(seg_lens.shape[0], dtype=np.int64), seg_lens
                 )
-                self.impact_order = np.lexsort(
-                    (self.doc_ids, -self.impact, term_of)
-                ).astype(np.int64)
+                keyed = (
+                    self.impact.dtype == np.float32
+                    and not np.isnan(self.impact).any()
+                    and self._docs_ascend()
+                )
+                s.attrs["route"] = "key" if keyed else "lexsort"
+                if keyed:
+                    key = torch.from_numpy(_impact_key(term_of, self.impact))
+                    self.impact_order = torch.argsort(key, stable=True).numpy()
+                else:
+                    self.impact_order = np.lexsort(
+                        (self.doc_ids, -self.impact, term_of)
+                    ).astype(np.int64)
         return self.impact_order
+
+    def _docs_ascend(self) -> bool:
+        """Whether doc ids strictly ascend within every term segment, as
+        the index builds make them: each step down, or repeat, falls on a
+        segment's start."""
+        d = self.doc_ids
+        at = np.flatnonzero(d[1:] <= d[:-1]) + 1
+        return bool(np.isin(at, self.term_offsets).all())
 
     def pruned_postings(
         self, term_id: int, max_m: int
@@ -125,7 +147,7 @@ class PostingsIndex:
         if hit is not None:
             return hit
         order = self.ensure_impact_order()
-        with span("setup.pruned_cache", n=self.nnz, max_m=max_m):
+        with span("setup.pruned_cache", n=self.nnz, max_m=max_m) as s:
             seg = np.diff(self.term_offsets).astype(np.int64)
             take = np.minimum(seg, max_m)
             offs = np.concatenate(
@@ -136,12 +158,22 @@ class PostingsIndex:
                     self.term_offsets[:-1].astype(np.int64), seg
                 )
                 sel = order[pos_in_seg < np.repeat(take, seg)]
-                docs = self.doc_ids[sel]
-                imps = self.impact[sel]
-                term_of = np.repeat(np.arange(seg.shape[0], dtype=np.int64), take)
-                o2 = np.lexsort((docs, term_of))
-                docs = np.ascontiguousarray(docs[o2], dtype=np.int32)
-                imps = np.ascontiguousarray(imps[o2], dtype=np.float32)
+                ascend = self._docs_ascend()
+                s.attrs["route"] = "mask" if ascend else "lexsort"
+                if ascend:
+                    # the postings are already term-major and doc-ascending:
+                    # marking the selected positions and compacting keeps
+                    # that order without a sort
+                    keep = np.zeros(self.nnz, dtype=bool)
+                    keep[sel] = True
+                    docs, imps = self.doc_ids[keep], self.impact[keep]
+                else:
+                    docs, imps = self.doc_ids[sel], self.impact[sel]
+                    term_of = np.repeat(np.arange(seg.shape[0], dtype=np.int64), take)
+                    o2 = np.lexsort((docs, term_of))
+                    docs, imps = docs[o2], imps[o2]
+                docs = np.ascontiguousarray(docs, dtype=np.int32)
+                imps = np.ascontiguousarray(imps, dtype=np.float32)
             else:
                 docs = np.zeros(0, np.int32)
                 imps = np.zeros(0, np.float32)
@@ -193,6 +225,20 @@ class PostingsIndex:
             starts = np.flatnonzero(np.r_[True, np.diff(widx) != 0])
             words[s, widx[starts]] = np.bitwise_or.reduceat(bits, starts)
         return slots, words
+
+
+def _impact_key(term_of: np.ndarray, impact: np.ndarray) -> np.ndarray:
+    """One int64 sort key per posting, ascending in (term, -impact), made
+    in place of ``term_of``: ``term << 32 | d``, where ``d`` is the float32
+    impact's bits as a uint32 that falls as the impact rises (a
+    non-negative's ``0x7FFFFFFF - bits``, a negative's bits as they are).
+    -0.0 becomes +0.0 first, so that the two tie as they compare. The
+    impacts must hold no NaN."""
+    s = (impact + np.float32(0.0)).view(np.int32)  # -0.0 + 0.0 is +0.0
+    s ^= ~(s >> 31) & np.int32(0x7FFFFFFF)
+    term_of <<= 32
+    term_of |= s.view(np.uint32)
+    return term_of
 
 
 def dense_store_dtype(name: str):

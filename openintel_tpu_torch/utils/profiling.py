@@ -37,9 +37,12 @@ The spans the port records, by layer (``n`` in brackets):
   ``groups``, the distinct mask rows scanned);
 - dense: ``dense.search`` (queries) with children ``dense.upload``
   (queries), ``dense_arm`` and ``wait_device``;
-- set-up: ``setup.impact_order``, ``setup.pruned_cache``,
-  ``setup.bitmap_cache``, ``setup.corpus_copy`` and ``setup.kernels``
-  (attribute ``build_s``, the seconds ``nvcc`` took, 0.0 when cached);
+- set-up: ``setup.impact_order`` (postings; attribute ``route``: ``key``,
+  the stable sort of one int64 key, or ``lexsort``), ``setup.pruned_cache``
+  (postings; attributes ``max_m`` and ``route``: ``mask``, a compaction of
+  the selection, or ``lexsort``), ``setup.bitmap_cache``,
+  ``setup.corpus_copy`` and ``setup.kernels`` (attribute ``build_s``, the
+  seconds ``nvcc`` took, 0.0 when cached);
 - serving: ``coalescer.queue_wait`` (queries; per request, from its
   enqueue to its wave's start) and ``coalescer.wave`` (queries).
 

@@ -201,6 +201,22 @@ def test_the_planner_span_carries_its_phases_and_the_plans_stay_as_they_were(fre
     assert sum(r.name == "setup.pruned_cache" for r in fresh.records()) == 1
 
 
+@pytest.mark.parametrize("nan", [False, True])
+def test_the_set_up_spans_say_which_route_ran(fresh, nan):
+    """``setup.impact_order`` carries ``route``: ``"key"`` (the stable sort
+    of one int64 key) on a plain index, ``"lexsort"`` where an impact is
+    NaN; ``setup.pruned_cache`` carries ``"mask"`` either way (its doc ids
+    ascend within each term)."""
+    index = synthetic_postings_index(5_000, vocab_size=300, seed=7)
+    if nan:
+        index.impact[3] = np.nan
+    index.pruned_cache(16)
+    recs = {r.name: r for r in fresh.records()}
+    assert recs["setup.impact_order"].attrs == {"route": "lexsort" if nan else "key"}
+    assert recs["setup.impact_order"].n == index.nnz
+    assert recs["setup.pruned_cache"].attrs == {"max_m": 16, "route": "mask"}
+
+
 def test_server_stats_reports_the_spans(fresh):
     r = HybridRetriever.build(["a b c", "b c d", "c d e"], dim=16, device="cpu")
     co = BatchCoalescer(lambda q, k=10: r.search(q, k=k), max_batch=4, max_wait_ms=1.0)
