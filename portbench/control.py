@@ -2,7 +2,10 @@
 next precision below the configuration's (int8 dense scores for the bf16
 store and its rescore; bfloat16 BM25 scores for float32), put in the
 program's place on the cell's own inputs and queries and judged by the
-same comparison. Its numbers set the upper readings of the limits.
+same comparison. Its numbers set the upper readings of the limits. A
+driver of a live corpus gives the states to judge in through its
+``control_states(cfg, traffic, inputs, seed, idx)``: (states, deletes,
+each query's state).
 
     python3 portbench/control.py --workload NAME --seeds 1,2,3 [--device cuda]
 
@@ -33,11 +36,14 @@ def control_numbers(root: Path, workload: str, seed: int, device: str) -> dict:
     plan = entry.plan(cfg, traffic, inputs)
     r = data.rng(seed, "sample", 1)
     idx = np.sort(r.choice(len(inputs.pool), size=min(check.SAMPLE, len(inputs.pool)), replace=False))
-    ref = check.Reference(inputs, cfg, plan)
-    low = check.Reference(inputs, cfg, plan, low_precision=True)
-    ids, scores = check.control_answers(low, idx)
+    states, deletes, st = (), (), None
+    if hasattr(entry, "control_states"):
+        states, deletes, st = entry.control_states(cfg, traffic, inputs, seed, idx)
+    ref = check.Reference(inputs, cfg, plan, states=states, deletes=deletes)
+    low = check.Reference(inputs, cfg, plan, low_precision=True, states=states, deletes=deletes)
+    ids, scores = check.control_answers(low, idx, st)
     groups = inputs.pool.groups[idx] if inputs.masks is not None else None
-    numbers = check.compare(ref, idx, ids, scores, inputs.masks, groups)
+    numbers = check.compare(ref, idx, ids, scores, inputs.masks, groups, st)
     ok, shown = check.verdict({**numbers, "unanswered": 0}, cell.limits)
     return {"workload": workload, "seed": seed, "control_correct": ok, "numbers": numbers}
 

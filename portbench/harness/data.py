@@ -16,6 +16,11 @@ normalised (the program's ``bench.py`` queries).
 Every seed gets the same sizes: the number of terms per query is a fixed
 multiset, the term ranks are stratified over the log-uniform range, and
 only their order and pairing depend on the seed.
+
+A live corpus's write pool is made with the corpus, as more docs of the
+same statistics after the base segment's; a pooled doc reaches the program
+as text (:func:`live_pool`), so its length is its token count, the sum of
+its tf.
 """
 
 from __future__ import annotations
@@ -146,6 +151,45 @@ def make_masks(n_docs: int, shares: list, seed: int, device) -> np.ndarray:
         for _ in range(int(count)):
             out.append((torch.rand(n_docs, generator=g, device=device) < share).cpu().numpy())
     return np.stack(out)
+
+
+def pooled_lengths(p: Postings, n_base: int) -> None:
+    """Set the length of every doc from ``n_base`` on to its token count,
+    the sum of its tf: the length the program measures of its text."""
+    n = p.doc_len_dev.shape[0]
+    tokens = torch.zeros(n, device=p.doc_len_dev.device).index_add_(0, p.doc_ids_dev.long(), p.tf_dev)
+    p.doc_len_dev[n_base:] = tokens[n_base:]
+    p.doc_len = p.doc_len_dev.cpu().numpy()
+
+
+@dataclass
+class LivePool:
+    base: Postings  # the first n_base docs' postings (tensors on the host)
+    texts: list  # each pooled doc's text: the token t<rank> of each term, tf times
+    rows: np.ndarray  # (n_pool, D) float32 pooled rows, the stored values
+
+
+def live_pool(p: Postings, rows: torch.Tensor, n_base: int) -> LivePool:
+    """The base segment's postings and, for each pooled doc (``n_base`` on),
+    what ``add_documents`` takes: its text and its row."""
+    term = np.repeat(np.arange(p.offsets.shape[0] - 1), np.diff(p.offsets))
+    keep = p.doc_ids < n_base
+    offsets = np.zeros_like(p.offsets)
+    offsets[1:] = np.cumsum(np.bincount(term[keep], minlength=p.offsets.shape[0] - 1))
+    doc_ids, tf = p.doc_ids[keep], p.tf[keep]
+    doc_len = p.doc_len[:n_base]
+    base = Postings(offsets=offsets, doc_ids=doc_ids, tf=tf, doc_len=doc_len,
+                    doc_ids_dev=torch.from_numpy(doc_ids), tf_dev=torch.from_numpy(tf),
+                    doc_len_dev=torch.from_numpy(doc_len))
+    pooled = np.flatnonzero(~keep)
+    pooled = pooled[np.argsort(p.doc_ids[pooled], kind="stable")]  # doc-major, terms ascending
+    n_pool = rows.shape[0] - n_base
+    tokens = np.repeat(np.array([f"t{t - 1}" for t in term[pooled]], dtype=object),
+                       p.tf[pooled].astype(np.int64))
+    ends = np.cumsum(np.bincount(np.repeat(p.doc_ids[pooled] - n_base, p.tf[pooled].astype(np.int64)),
+                                 minlength=n_pool))
+    texts = [" ".join(part) for part in np.split(tokens, ends[:-1])]
+    return LivePool(base=base, texts=texts, rows=rows[n_base:].float().cpu().numpy())
 
 
 class PoolEmbedder:

@@ -67,6 +67,22 @@ def hybrid_retriever(cfg: dict, postings: Postings, rows, pool: QueryPool, devic
     )
 
 
+def updatable_retriever(cfg: dict, postings: Postings, rows, pool: QueryPool, device):
+    """The live corpus (``UpdatableHybridRetriever``, RRF) over a base
+    segment of ``postings`` and ``rows``; its drivers add and delete
+    through ``add_documents`` and ``delete_ids``."""
+    from openintel_tpu_torch.models.updatable import UpdatableHybridRetriever
+
+    return UpdatableHybridRetriever(
+        postings_index(postings, cfg["vocab_size"]),
+        dense_index(rows),
+        PoolEmbedder(pool),
+        kernel=cfg["kernel"],
+        device_batch=cfg["device_batch"],
+        device=device,
+    )
+
+
 def dense_retriever(cfg: dict, rows, pool: QueryPool, device):
     from openintel_tpu_torch.models.retrievers import DenseRetriever
 

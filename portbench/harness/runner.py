@@ -28,15 +28,23 @@ class Inputs:
     rows: torch.Tensor
     pool: data.QueryPool
     masks: Optional[np.ndarray]
+    n_base: int  # docs in the corpus at the start; those after them are the write pool
 
 
 def make_inputs(cfg: dict, traffic: dict, seed: int, device, hybrid: bool) -> Inputs:
-    """The cell's inputs; postings only where its driver searches them."""
+    """The cell's inputs; postings only where its driver searches them. A
+    mix with ``"writes": {"pool": N}`` gets N more docs after the
+    configuration's ``n_docs``, for its driver to add in the window."""
     n_docs, dim, vocab = cfg["n_docs"], cfg["dim"], cfg["vocab_size"]
+    n_all = n_docs + int(traffic.get("writes", {}).get("pool", 0))
+    if n_all > n_docs and traffic.get("masks"):
+        raise ValueError("a mix with a write pool takes no masks")
     postings = None
     if hybrid:
-        postings = data.make_postings(n_docs, vocab, cfg["postings"], seed, device)
-    rows = data.make_rows(n_docs, dim, cfg["store"], seed, device)
+        postings = data.make_postings(n_all, vocab, cfg["postings"], seed, device)
+        if n_all > n_docs:
+            data.pooled_lengths(postings, n_docs)
+    rows = data.make_rows(n_all, dim, cfg["store"], seed, device)
     pool = data.make_queries(rows, vocab, traffic["queries"]["pool"], cfg["query_model"], seed)
     masks = None
     if traffic.get("masks"):
@@ -45,7 +53,7 @@ def make_inputs(cfg: dict, traffic: dict, seed: int, device, hybrid: bool) -> In
         groups = np.resize(np.arange(masks.shape[0], dtype=np.int32), len(pool))
         r.shuffle(groups)
         pool.groups = groups
-    return Inputs(postings, rows, pool, masks)
+    return Inputs(postings, rows, pool, masks, n_docs)
 
 
 def profile_factory(device):
@@ -130,14 +138,14 @@ def run_cell(
         torch.cuda.empty_cache()
 
     # the reference, after the window, the peak and the program's state
-    ref = check.Reference(inputs, cfg, plan)
-    idx, ids, scores = check.sample(
+    ref = check.Reference(inputs, cfg, plan, states=win.states, deletes=win.deletes)
+    idx, ids, scores, states = check.sample(
         win.answers, check.SAMPLE, seed,
         whole_requests=traffic["entry"] == "requests",
     )
     numbers = check.compare(
         ref, idx, ids, scores, inputs.masks,
-        inputs.pool.groups[idx] if inputs.masks is not None else None,
+        inputs.pool.groups[idx] if inputs.masks is not None else None, states,
     )
     numbers["unanswered"] = win.failed
     record["check"] = {"recall": 1.0 - numbers["missed"], **numbers}

@@ -72,8 +72,15 @@ class Window:
     requests: int = 0  # requests due inside the window (open loop)
     failed: int = 0
     latencies: list = field(default_factory=list)  # seconds per request, open loop
-    # (pool indices, (n, k) ids, (n, k) scores) of the answers
+    # (pool indices, (n, k) ids, (n, k) scores[, state]) of the answers; the
+    # state, where given, indexes ``states``: what the answer was served from
     answers: list = field(default_factory=list)
+    # a live corpus's states, (n_visible, n_dead): the first n_visible docs
+    # were added and the first n_dead ids of ``deletes``, the one
+    # append-only log of deleted ids, deleted; each acknowledged before an
+    # answer that names it was sent
+    states: list = field(default_factory=list)
+    deletes: list = field(default_factory=list)
     errors: list = field(default_factory=list)
     t1: float = 0.0  # the window's end
     last_done: float = 0.0  # when the last answer came back (open loop)

@@ -4,7 +4,7 @@ return of the first wave at ``--seconds`` or later)."""
 
 
 def read(rec):
-    if rec["cell"]["traffic"]["entry"] not in ("stream", "dense"):
+    if rec["cell"]["traffic"].get("loop") != "closed":
         return None
     win = rec["window"]
     return win.queries / (win.t1 - win.t0)

@@ -1,8 +1,9 @@
 """Toy cells for the harness's CPU tests: a copy of ``portbench/`` and of
 ``BENCHMARK.json`` in a temporary directory, with one small configuration,
 small copies of the traffic mixes, an open-loop mix of ``search_corpus``
-requests, and their limits added as new files and new entries. The
-program runs its kernels' plain twins on the CPU."""
+requests, a live corpus under writes (its own configuration, mix, limits
+and driver, ``live_driver.py``), and their limits added as new files and
+new entries. The program runs its kernels' plain twins on the CPU."""
 
 from __future__ import annotations
 
@@ -37,6 +38,15 @@ REQUESTS = {
     "coalescer": {"max_batch": 256, "max_wait_ms": 2.0}, "workers": 16, "warm_bursts": 1,
     "queries": {"pool": 2048}, "trace_seconds": 3.0,
 }
+
+# the live corpus under writes: no committed cell runs it yet
+LIVE = {
+    "entry": "live", "loop": "closed", "wave": 256, "k": 10, "candidates_per_arm": 20,
+    "writes": {"pool": 3000, "add_batch": 400, "delete_batch": 100},
+    "queries": {"pool": 2048}, "warm_waves": 1, "trace_seconds": 3.0,
+}
+LIVE_LIMITS = {"disagree": 0.25, "short": 0, "unanswered": 0, "invisible": 0}
+CELLS = {"live": "toy-live.live"}  # toy cells not named toy.<mix>
 
 
 def tree_digest(root: Path) -> dict:
@@ -89,11 +99,30 @@ def make_toy_root(dest: Path, limits: dict | None = None) -> Path:
             if cells and any(c.endswith("." + like) for c in cells):
                 cells.append(name)
     bench["per_layer"].append(FALLBACK_SHARE)
+    add_live_cell(dest, bench, (limits or {}).get("live", LIVE_LIMITS))
     (dest / "BENCHMARK.json").write_text(json.dumps(bench))
     after = tree_digest(dest / "portbench")
     changed = [f for f in before if after.get(f) != before[f]]
     assert not changed, f"adding the toy cells edited {changed}"
     return dest
+
+
+def add_live_cell(dest: Path, bench: dict, limits: dict) -> None:
+    """The live corpus as a later cell would bring it: a driver, a
+    configuration, a mix with writes and limits, each a new file, and
+    entries for them."""
+    here = dest / "portbench"
+    shutil.copy(Path(__file__).with_name("live_driver.py"), here / "drivers/live.py")
+    cfg = json.loads((here / "configs/toy.json").read_text())
+    cfg.update(name="toy-live", fusion="rrf")
+    (here / "configs/toy-live.json").write_text(json.dumps(cfg))
+    bench["configs"].append({"name": "toy-live", "source": "tests", "file": "portbench/configs/toy-live.json",
+                             "reduced": [], "why": "tests"})
+    (here / "traffic/toy-live.json").write_text(json.dumps(LIVE))
+    (here / f"limits/{CELLS['live']}.json").write_text(json.dumps(limits))
+    bench["workloads"].append(
+        {"name": CELLS["live"], "config": "toy-live", "traffic": "toy-live", "chips": 1, "why": "tests"})
+    next(m for m in bench["end_to_end"] if m["name"] == "batch_qps")["workloads"].append(CELLS["live"])
 
 
 @pytest.fixture(scope="module")
@@ -105,5 +134,5 @@ def run_toy(root: Path, mix: str, trace: bool = False, seconds: float = 1.5, see
     """One run of a toy cell on the CPU, as ``run.py`` runs it on the card."""
     from portbench.harness import runner
 
-    return runner.run_cell(root, f"toy.{mix}", seed, seconds, trace, "cpu", time.perf_counter(),
-                           log=lambda msg: None)
+    return runner.run_cell(root, CELLS.get(mix, f"toy.{mix}"), seed, seconds, trace, "cpu",
+                           time.perf_counter(), log=lambda msg: None)

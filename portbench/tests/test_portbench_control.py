@@ -6,24 +6,24 @@ from __future__ import annotations
 
 import pytest
 
-from conftest import MIXES, REPO
+from conftest import CELLS, MIXES, REPO
 from portbench.control import control_numbers
 
 
-@pytest.mark.parametrize("mix", MIXES)
+@pytest.mark.parametrize("mix", MIXES + ("live",))
 def test_control_fails_at_toy_size(toy_root, mix):
-    out = control_numbers(toy_root, f"toy.{mix}", 5, "cpu")
+    out = control_numbers(toy_root, CELLS.get(mix, f"toy.{mix}"), 5, "cpu")
     assert out["control_correct"] is False, out
 
 
-CELLS = [
+CARD_CELLS = [
     "msmarco-shard-int8.hybrid-batch",
     "msmarco-full-int8.dense-batch",
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", CARD_CELLS)
 def test_control_fails_at_cell_size(cell):
     import torch
 

@@ -1,12 +1,15 @@
 """A run with the timed path broken underneath comes out not correct, for
 each fault a cell can have: half of each batch left out (its rows a copy
 of the other half's), an answer altered where it is produced, a step that
-hands back the previous step's result. (One card: no exchange between
-cards to leave out.) The chip's look is skipped: the toy cells run on the
-CPU."""
+hands back the previous step's result; and on a live corpus, a wave
+served from the epoch before the last write, a deleted id served (the
+delete acknowledged and dropped), an add acknowledged and dropped. (One
+card: no exchange between cards to leave out.) The chip's look is
+skipped: the toy cells run on the CPU."""
 
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
@@ -81,6 +84,45 @@ def _break_stale_step(mp):
     mp.setattr(retrievers.HybridRetriever, "finalize_prepared", stale)
 
 
+def _break_stale_epoch(mp):
+    from openintel_tpu_torch.models import updatable
+
+    cls = updatable.UpdatableHybridRetriever
+
+    def keeping_the_last(write):
+        def wrapped(self, *a, **kw):
+            self._before_last_write = self._st
+            return write(self, *a, **kw)
+        return wrapped
+
+    for name in ("add_documents", "delete_ids"):
+        mp.setattr(cls, name, keeping_the_last(getattr(cls, name)))
+    mp.setattr(cls, "search", lambda self, queries, k=10, **kw: self._search_epoch(
+        getattr(self, "_before_last_write", self._st), queries, k, **kw))
+
+
+def _break_deleted_served(mp):
+    from openintel_tpu_torch.models import updatable
+
+    mp.setattr(updatable.UpdatableHybridRetriever, "delete_ids", lambda self, ids: None)
+
+
+def _break_dropped_add(mp):
+    from openintel_tpu_torch.models import updatable
+
+    orig = updatable.UpdatableHybridRetriever.add_documents
+    calls = []
+
+    def add(self, texts, embeddings=None):
+        calls.append(len(texts))
+        if len(calls) == 2:  # acknowledged with the ids it would get, and dropped
+            n = self.n_docs
+            return np.arange(n, n + len(texts))
+        return orig(self, texts, embeddings)
+
+    mp.setattr(updatable.UpdatableHybridRetriever, "add_documents", add)
+
+
 FAULTS = [
     ("hybrid-batch", _break_half_batch_hybrid),
     ("hybrid-batch", _break_fusion),
@@ -91,6 +133,9 @@ FAULTS = [
     ("requests", _break_half_batch_hybrid),
     ("dense-batch", _break_half_batch_dense),
     ("dense-batch", _break_rescore),
+    ("live", _break_stale_epoch),
+    ("live", _break_deleted_served),
+    ("live", _break_dropped_add),
 ]
 
 

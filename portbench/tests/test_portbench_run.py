@@ -15,7 +15,7 @@ from conftest import MIXES, REPO, run_toy, tree_digest
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
 
-@pytest.mark.parametrize("mix", MIXES)
+@pytest.mark.parametrize("mix", MIXES + ("live",))
 def test_each_mix_runs_and_is_correct(toy_root, mix):
     res = run_toy(toy_root, mix)
     rec = res.pop("_record")
