@@ -32,6 +32,9 @@ _lib: Optional[ctypes.CDLL] = None
 
 # the planner's phases, in the order of ``plan_build_masked``'s phase array
 PHASES = ("dedup_prune", "intersect", "multi_select", "emit", "merge")
+# the counts after the phases in that array: the queries that grouped their
+# pairwise hits by doc, and the hits they grouped
+COUNTS = ("multi_queries", "multi_hits")
 
 
 def _src_hash() -> str:
@@ -118,7 +121,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         i64p, i32p, f32p,  # pruned cache (nullable): offsets, doc_ids, impacts
         i32p, ctypes.POINTER(ctypes.c_uint64), ctypes.c_int64,  # bitmap cache
         i32p, f32p, ctypes.c_int64, i64p, ctypes.c_int64,
-        i64p,  # the phase totals (nullable; PHASES)
+        i64p,  # the phase totals and counts (nullable; PHASES + COUNTS)
     ]
     lib.openintel_src_hash.restype = ctypes.c_char_p
     lib.openintel_src_hash.argtypes = []
@@ -294,7 +297,7 @@ def native_build_query_plan(
         out_ids = np.full((b, cap), index.n_docs, dtype=np.int32)
         out_w = np.zeros((b, cap), dtype=np.float32)
         widths = np.zeros(b, dtype=np.int64)
-        phase_ns = np.zeros(len(PHASES), dtype=np.int64)
+        phase_ns = np.zeros(len(PHASES) + len(COUNTS), dtype=np.int64)
         with span("planner", n=b, threads=threads) as sp:
             rc = lib.plan_build_masked(
                 term_offsets.ctypes.data_as(i64p),
@@ -324,7 +327,7 @@ def native_build_query_plan(
                 n_threads,
                 phase_ns.ctypes.data_as(i64p),
             )
-            sp.attrs.update(zip(PHASES, phase_ns.tolist()))
+            sp.attrs.update(zip(PHASES + COUNTS, phase_ns.tolist()))
         if rc >= 0:
             return out_ids, out_w, max_terms, int(rc)  # rc = exact max width
         cap = int(-rc)  # grow to the reported required width and retry

@@ -37,15 +37,21 @@ namespace {
 // range ends; without the array no clock is read.
 //   0 dedup_prune (term dedup, prune check)  1 intersect (pairwise
 //   intersections)  2 multi_select  3 emit (per-term runs)  4 merge
+// Two counts follow the phases in the same array:
+//   5 multi_queries (queries that grouped their hits by doc)
+//   6 multi_hits (the hits those queries grouped)
 constexpr int kPhases = 5;
+constexpr int kMultiQueries = kPhases;
+constexpr int kMultiHits = kPhases + 1;
+constexpr int kSlots = kPhases + 2;
 
 struct PhaseClock {
-  int64_t* out;  // kPhases slots to add into, or null
-  int64_t acc[kPhases] = {};
+  int64_t* out;  // kSlots slots to add into, or null
+  int64_t acc[kSlots] = {};
   explicit PhaseClock(int64_t* slots) : out(slots) {}
   ~PhaseClock() {
     if (out != nullptr)
-      for (int i = 0; i < kPhases; ++i) out[i] += acc[i];
+      for (int i = 0; i < kSlots; ++i) out[i] += acc[i];
   }
   int64_t now() const {
     if (out == nullptr) return 0;
@@ -56,6 +62,7 @@ struct PhaseClock {
   void add(int phase, int64_t since) {
     if (out != nullptr) acc[phase] += now() - since;
   }
+  void count(int slot, int64_t n) { acc[slot] += n; }
 };
 
 }  // namespace
@@ -111,6 +118,52 @@ inline void emit_hits(int32_t doc, int64_t pos_a, uint16_t key_a,
                       int64_t pos_b, uint16_t key_b, std::vector<Hit>& out) {
   out.push_back(Hit{pos_a, doc, key_a});
   out.push_back(Hit{pos_b, doc, key_b});
+}
+
+// Bits needed to hold v (0 for 0).
+inline int bit_width(uint64_t v) { return v == 0 ? 0 : 64 - __builtin_clzll(v); }
+
+// Groups `hits` by (doc, key) ascending: an LSD radix sort on the value
+// doc << key_bits | key, whose width the query's largest doc id and key
+// set, in as few digits of at most kDigitBits as that width needs (a small
+// corpus makes fewer passes). One read counts every digit; a digit whose
+// hits all share one bucket is skipped. `tmp` and `counts` are the
+// worker's scratch, reused across its queries.
+constexpr int kDigitBits = 11;
+
+void radix_group_hits(std::vector<Hit>& hits, std::vector<Hit>& tmp,
+                      std::vector<uint32_t>& counts, int doc_bits,
+                      int key_bits) {
+  const size_t n = hits.size();
+  const int width = doc_bits + key_bits;
+  const int passes = (width + kDigitBits - 1) / kDigitBits;
+  const int digit = (width + passes - 1) / passes;
+  const size_t buckets = size_t{1} << digit;
+  const uint64_t mask = buckets - 1;
+  auto value = [key_bits](const Hit& h) {
+    return (static_cast<uint64_t>(static_cast<uint32_t>(h.doc)) << key_bits) |
+           h.key;
+  };
+  counts.assign(passes * buckets, 0);
+  for (const Hit& h : hits) {
+    const uint64_t v = value(h);
+    for (int p = 0; p < passes; ++p)
+      ++counts[p * buckets + ((v >> (p * digit)) & mask)];
+  }
+  tmp.resize(n);
+  for (int p = 0; p < passes; ++p) {
+    uint32_t* c = counts.data() + p * buckets;
+    const int shift = p * digit;
+    if (c[(value(hits[0]) >> shift) & mask] == n) continue;
+    uint32_t sum = 0;
+    for (size_t b = 0; b < buckets; ++b) {
+      const uint32_t x = c[b];
+      c[b] = sum;
+      sum += x;
+    }
+    for (const Hit& h : hits) tmp[c[(value(h) >> shift) & mask]++] = h;
+    hits.swap(tmp);
+  }
 }
 
 #if defined(__AVX512F__)
@@ -308,10 +361,8 @@ int64_t plan_build_range(const int64_t* term_offsets, const int32_t* doc_ids,
   std::vector<float> seg_imp;
   std::vector<int32_t> multi_sorted;
   std::vector<Hit> hits;
-  std::vector<int64_t> run_end;
-  std::vector<int64_t> hit_cur;
-  std::vector<int64_t> hit_end;
-  std::vector<Hit> loc;
+  std::vector<Hit> hits_tmp;
+  std::vector<uint32_t> radix_counts;
   std::vector<double> key_w;
   std::vector<int32_t> run_doc;
   std::vector<float> run_w;
@@ -386,7 +437,6 @@ int64_t plan_build_range(const int64_t* term_offsets, const int32_t* doc_ids,
         key_w[key] = static_cast<double>(idf[terms[j]]) * qtf[j];
       }
       hits.clear();
-      run_end.clear();
       const int64_t prof_t1 = clk.now();
       for (size_t i = 0; i + 1 < nt; ++i) {
         const uint16_t ki = (i == big) ? big_key : static_cast<uint16_t>(i);
@@ -422,7 +472,6 @@ int64_t plan_build_range(const int64_t* term_offsets, const int32_t* doc_ids,
           } else {
             intersect_ranges(doc_ids, slo, shi, llo, lhi, ks, kl, hits);
           }
-          run_end.push_back(static_cast<int64_t>(hits.size()));
         }
       }
       clk.add(1, prof_t1);
@@ -442,73 +491,44 @@ int64_t plan_build_range(const int64_t* term_offsets, const int32_t* doc_ids,
             std::unique(multi_sorted.begin(), multi_sorted.end()),
             multi_sorted.end());
       } else {
-        // hits -> per-doc exact scores. `hits` is a concatenation of
-        // per-pair doc-ascending runs (boundaries in run_end), so the
-        // (doc, key) grouping the old global std::sort produced comes
-        // from a k-way min-merge over <= nt(nt-1)/2 runs: linear in
-        // |hits| (the sort was the dominant cost of this phase at bench
-        // scale). Per doc, the <= 2-per-run entries are insertion-sorted
-        // by key and accumulated with the same same-key dedup (the
-        // duplicate is the same match rediscovered via another pair —
-        // identical pos by postings uniqueness), so scores and
-        // tie-breaking are bit-identical to the sorted path. Degenerate
-        // many-term queries (> 64 runs: O(runs) scan per doc group)
-        // fall back to the global sort.
+        // hits -> per-doc exact scores: group the hits by (doc, key), then
+        // accumulate each doc's score in key order with the same-key dedup
+        // (the duplicate is the same match rediscovered via another pair,
+        // identical pos by postings uniqueness), so scores and tie-breaking
+        // are bit-identical to a global (doc, key) sort's. The heap's order
+        // is strict, so the docs it keeps do not depend on the order they
+        // arrive in.
+        clk.count(kMultiQueries, 1);
+        clk.count(kMultiHits, static_cast<int64_t>(hits.size()));
+        int32_t max_doc = 0;
+        for (size_t j = 0; j < nt; ++j) {
+          const int64_t lo = term_offsets[terms[j]];
+          const int64_t hi = term_offsets[terms[j] + 1];
+          if (hi > lo) max_doc = std::max(max_doc, doc_ids[hi - 1]);
+        }
+        radix_group_hits(hits, hits_tmp, radix_counts,
+                         bit_width(static_cast<uint32_t>(max_doc)),
+                         bit_width(big_key));
         std::priority_queue<MultiDoc, std::vector<MultiDoc>, WorstFirst>
             heap;
-        hit_cur.clear();
-        hit_end.clear();
-        int64_t prev_end = 0;
-        for (size_t r = 0; r < run_end.size(); ++r) {
-          if (run_end[r] > prev_end) {
-            hit_cur.push_back(prev_end);
-            hit_end.push_back(run_end[r]);
-          }
-          prev_end = run_end[r];
-        }
-        const bool merge_runs = hit_cur.size() <= 64;
-        if (!merge_runs) {
-          std::sort(hits.begin(), hits.end(),
-                    [](const Hit& x, const Hit& y) {
-                      if (x.doc != y.doc) return x.doc < y.doc;
-                      return x.key < y.key;
-                    });
-          hit_cur.assign(1, 0);
-          hit_end.assign(1, static_cast<int64_t>(hits.size()));
-        }
-        size_t nlive = hit_cur.size();
-        while (nlive > 0) {
-          int32_t m = hits[hit_cur[0]].doc;
-          for (size_t r = 1; r < nlive; ++r)
-            m = std::min(m, hits[hit_cur[r]].doc);
-          loc.clear();
-          for (size_t r = 0; r < nlive;) {
-            while (hit_cur[r] < hit_end[r] && hits[hit_cur[r]].doc == m)
-              loc.push_back(hits[hit_cur[r]++]);
-            if (hit_cur[r] >= hit_end[r]) {
-              hit_cur[r] = hit_cur[nlive - 1];
-              hit_end[r] = hit_end[nlive - 1];
-              --nlive;
-            } else {
-              ++r;
-            }
-          }
-          // insertion sort by key (<= 2 entries per live run)
-          for (size_t a = 1; a < loc.size(); ++a) {
-            const Hit h = loc[a];
-            size_t p = a;
-            for (; p > 0 && loc[p - 1].key > h.key; --p) loc[p] = loc[p - 1];
-            loc[p] = h;
+        const size_t n_hits = hits.size();
+        for (size_t i = 0; i < n_hits;) {
+          const int32_t m = hits[i].doc;
+          size_t e = i + 1;
+          while (e < n_hits && hits[e].doc == m) ++e;
+          // a masked doc can never enter the plan
+          if (doc_mask != nullptr && !doc_mask[m]) {
+            i = e;
+            continue;
           }
           double score = 0.0;
           uint32_t prev_key = UINT32_MAX;
-          for (const Hit& h : loc) {
+          for (; i < e; ++i) {
+            const Hit& h = hits[i];
             if (h.key == prev_key) continue;
             prev_key = h.key;
             score += static_cast<double>(impact[h.pos]) * key_w[h.key];
           }
-          // a masked doc can never enter the plan
-          if (doc_mask != nullptr && !doc_mask[m]) continue;
           MultiDoc md{score, m};
           if (static_cast<int64_t>(heap.size()) < multi_budget) {
             heap.push(md);
@@ -693,8 +713,9 @@ extern "C" {
 // queries with `n_threads` (0 = hardware concurrency); rows are disjoint so
 // workers share nothing but read-only index arrays. `doc_mask` (nullable,
 // n_docs bytes) builds the filtered plan — see plan_build_range.
-// `phase_ns` (nullable, 5 slots) receives, added to what it holds, each
-// phase's nanoseconds summed over the worker threads (see PhaseClock).
+// `phase_ns` (nullable, 7 slots) receives, added to what it holds, each
+// phase's nanoseconds and the two counts summed over the worker threads
+// (see PhaseClock).
 int64_t plan_build_masked(const int64_t* term_offsets, const int32_t* doc_ids,
                           const float* impact, const int64_t* impact_order,
                           const float* idf, int64_t n_terms_vocab,
@@ -724,13 +745,13 @@ int64_t plan_build_masked(const int64_t* term_offsets, const int32_t* doc_ids,
   }
   std::vector<int64_t> results(n_threads, 0);
   // one row of phase slots a worker, summed into phase_ns after the join
-  std::vector<int64_t> slots(phase_ns != nullptr ? n_threads * kPhases : 0, 0);
+  std::vector<int64_t> slots(phase_ns != nullptr ? n_threads * kSlots : 0, 0);
   std::vector<std::thread> workers;
   const int64_t chunk = (B + n_threads - 1) / n_threads;
   for (int64_t w = 0; w < n_threads; ++w) {
     const int64_t lo = w * chunk, hi = std::min(B, lo + chunk);
     if (lo >= hi) break;
-    int64_t* mine = phase_ns != nullptr ? slots.data() + w * kPhases : nullptr;
+    int64_t* mine = phase_ns != nullptr ? slots.data() + w * kSlots : nullptr;
     workers.emplace_back([=, &results]() {
       results[w] = plan_build_range(term_offsets, doc_ids, impact,
                                     impact_order, idf, n_terms_vocab, q_terms,
@@ -742,7 +763,7 @@ int64_t plan_build_masked(const int64_t* term_offsets, const int32_t* doc_ids,
     });
   }
   for (auto& t : workers) t.join();
-  for (size_t i = 0; i < slots.size(); ++i) phase_ns[i % kPhases] += slots[i];
+  for (size_t i = 0; i < slots.size(); ++i) phase_ns[i % kSlots] += slots[i];
   int64_t max_width = 0;
   for (int64_t r : results) {
     if (r < 0) return r;  // some row overflowed cap

@@ -10,10 +10,16 @@ breakdown of plan assembly:
   0 term-dedup+prune-check   1 pairwise-intersections   2 multi-selection
   3 per-term-emission        4 k-way-merge-output
 
+and beside it the array's two counts: the queries whose pairwise hits
+outgrew twice the multi-term budget, so that multi-selection grouped them
+by doc, and the hits they grouped.
+
     python -m openintel_tpu_torch.tools.profile_planner [--device cpu] [--out PATH]
 
 Env: PROF_DOCS (default 1_250_000), PROF_QUERIES (default 4096),
 PROF_VOCAB (default 30_000), PROF_REPEATS (default 3, best-of),
+PROF_TERMS (default 4; ``LO-HI`` draws each query's term count uniformly
+from LO..HI, as the hybrid cell's ``3-9``),
 PROF_BITMAP (0 off, 1 the production threshold, N > 1 an explicit
 min_df), PROF_AB=1 (the no-bitmap planner in turns in the same process).
 Single-threaded on purpose: the per-core rate is the serving budget unit.
@@ -43,25 +49,43 @@ PHASES = [
     "per-term-emission",
     "k-way-merge-output",
 ]
+COUNTS = ["multi_queries", "multi_hits"]
 TERMS_PER_QUERY = 4
 
 
-def bench_term_ids(total_q: int, vocab_size: int) -> np.ndarray:
-    """``bench.py``'s queries as term ids: (total_q, 4) int32 from
-    ``default_rng(1)``."""
+def parse_terms(spec: str) -> tuple[int, int]:
+    """``"4"`` -> (4, 4); ``"3-9"`` -> (3, 9)."""
+    lo, _, hi = spec.partition("-")
+    lo, hi = int(lo), int(hi or lo)
+    if not 1 <= lo <= hi:
+        raise ValueError(f"PROF_TERMS={spec!r}: want N or LO-HI with 1 <= LO <= HI")
+    return lo, hi
+
+
+def bench_term_ids(
+    total_q: int, vocab_size: int, terms: tuple[int, int] = (TERMS_PER_QUERY, TERMS_PER_QUERY)
+) -> np.ndarray:
+    """``bench.py``'s queries as term ids from ``default_rng(1)``: (total_q,
+    HI) int32 for ``terms`` (LO, HI); a query of fewer than HI terms (a
+    count uniform over LO..HI) ends in 0s, the padding term."""
+    lo, hi = terms
     rng = np.random.default_rng(1)
     ranks = np.exp(
-        rng.uniform(np.log(50), np.log(vocab_size - 1), size=(total_q, TERMS_PER_QUERY))
+        rng.uniform(np.log(50), np.log(vocab_size - 1), size=(total_q, hi))
     ).astype(np.int64)
-    return np.ascontiguousarray(ranks + 1, dtype=np.int32)
+    q = ranks + 1
+    if lo < hi:
+        n = rng.integers(lo, hi + 1, size=total_q)
+        q[np.arange(hi) >= n[:, None]] = 0
+    return np.ascontiguousarray(q, dtype=np.int32)
 
 
 def profile_plan(index, q: np.ndarray, lib, *, repeats: int, bitmap: int = 1, ab: bool = False) -> dict:
     """Plan ``q`` (``(Q, terms)`` int32 term ids) over ``index`` on one
     thread with the native library ``lib``, ``repeats`` times; returns the
     best run's ms per query, its phases' ms per query and shares of the
-    instrumented time, and, with ``ab``, the bitmap and no-bitmap planners'
-    best ms per query in turns."""
+    instrumented time, its counts, and, with ``ab``, the bitmap and
+    no-bitmap planners' best ms per query in turns."""
     n_docs = index.n_docs
     total_q, terms = q.shape
     prune_m = auto_prune_m(n_docs, 32) or 128  # small corpora: force pruning
@@ -89,7 +113,7 @@ def profile_plan(index, q: np.ndarray, lib, *, repeats: int, bitmap: int = 1, ab
     widths = np.zeros(total_q, dtype=np.int64)
 
     def run_once(slots, words, stride):
-        ns = np.zeros(len(PHASES), np.int64)
+        ns = np.zeros(len(PHASES) + len(COUNTS), np.int64)
         s = time.perf_counter()
         rc = lib.plan_build_masked(
             term_offsets.ctypes.data_as(i64p), doc_ids.ctypes.data_as(i32p),
@@ -128,6 +152,7 @@ def profile_plan(index, q: np.ndarray, lib, *, repeats: int, bitmap: int = 1, ab
         wall, ns = run_once(bm_slots, bm_words, bm_stride)
         if wall < best_wall:
             best_wall, best_ns = wall, ns
+    best_ns, counts = best_ns[: len(PHASES)], best_ns[len(PHASES):]
     tot = sum(best_ns) or 1
     out.update({
         "ms_per_query": best_wall * 1e3 / total_q,
@@ -137,6 +162,7 @@ def profile_plan(index, q: np.ndarray, lib, *, repeats: int, bitmap: int = 1, ab
             for name, ns in zip(PHASES, best_ns)
         },
         "uninstrumented_ms_per_query": (best_wall * 1e9 - tot) / 1e6 / total_q,
+        **dict(zip(COUNTS, counts)),
     })
     return out
 
@@ -159,6 +185,11 @@ def report_lines(res: dict) -> list[str]:
             f"{100 * ph['share']:5.1f}% of instrumented"
         )
     lines.append(f"  {'(uninstrumented rest)':24s} {res['uninstrumented_ms_per_query']:8.4f} ms/q")
+    grouped, hits = res["multi_queries"], res["multi_hits"]
+    lines.append(
+        f"  grouped by doc: {grouped} of {res['queries']} queries, {hits:,} hits"
+        f" ({hits / max(grouped, 1):,.0f} a grouped query)"
+    )
     return lines
 
 
@@ -174,6 +205,7 @@ def main(argv=None) -> int:
     total_q = int(os.environ.get("PROF_QUERIES", 0)) or 4096
     vocab_size = int(os.environ.get("PROF_VOCAB", 0)) or 30_000
     repeats = int(os.environ.get("PROF_REPEATS", 0)) or 3
+    terms = parse_terms(os.environ.get("PROF_TERMS", "") or str(TERMS_PER_QUERY))
     stamp = common.stamp(device)
     print(common.device_line(device), flush=True)
     t0 = time.perf_counter()
@@ -185,7 +217,7 @@ def main(argv=None) -> int:
     if lib is None:
         raise RuntimeError(f"the native planner {native.library_path()} does not load")
     res = profile_plan(
-        index, bench_term_ids(total_q, vocab_size), lib, repeats=repeats,
+        index, bench_term_ids(total_q, vocab_size, terms), lib, repeats=repeats,
         bitmap=int(os.environ.get("PROF_BITMAP", "1")), ab=os.environ.get("PROF_AB") == "1",
     )
     print(
@@ -198,7 +230,7 @@ def main(argv=None) -> int:
         print(line, flush=True)
     res = {
         "metric": "planner_phase_profile", **stamp, "host_cores": os.cpu_count(),
-        "vocab_size": vocab_size, "index_s": index_s, **res,
+        "vocab_size": vocab_size, "terms": list(terms), "index_s": index_s, **res,
     }
     print(f"wrote {common.write_json(res, args.out, 'profile_planner')}", flush=True)
     return 0

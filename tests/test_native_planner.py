@@ -2,6 +2,8 @@
 identical device results (the native analogue of parser-fixture parity —
 reference test strategy: canned inputs through both implementations)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -9,6 +11,9 @@ from openintel_tpu import native
 from openintel_tpu.index.synthetic import synthetic_postings_index
 from openintel_tpu.ops import reference as ref
 from openintel_tpu.ops.bm25 import bm25_topk_device, build_query_plan
+from openintel_tpu_torch import convert
+from openintel_tpu_torch import native as tnative
+from openintel_tpu_torch.utils import profiling
 
 
 @pytest.fixture(scope="module")
@@ -364,3 +369,99 @@ def test_native_masked_plan_matches_oracle(lib, idx):
         rv, ri = ref.bm25_topk(idx, terms, 10, doc_mask=mask)
         np.testing.assert_array_equal(ids[b], ri)
         np.testing.assert_allclose(vals[b], rv, rtol=1e-5, atol=1e-6)
+
+
+# --------------------------- the port's multi-term grouping
+
+
+# case -> (terms a query, max_m, multi_budget, index variant, kept share of a
+# doc mask or None)
+GROUPING_CASES = {
+    "9-terms": (9, 32, 16, "plain", None),  # 36 pairwise runs
+    "12-terms": (12, 32, 16, "plain", None),  # 66 runs
+    "small-budget": (4, 16, 2, "plain", None),  # nearly every query groups
+    "tied-impacts": (5, 32, 16, "tied", None),  # equal scores at the edge
+    "mask-50": (6, 32, 16, "plain", 0.5),
+    "mask-5": (6, 32, 16, "plain", 0.05),
+    "wide-doc-ids": (9, 32, 16, "wide", None),  # 31-bit doc ids
+}
+
+
+@pytest.fixture(scope="module")
+def port_lib():
+    tnative.build()
+    if tnative._load() is None:  # pragma: no cover - toolchain always present
+        pytest.skip("native library unavailable")
+    return True
+
+
+def _variant(idx, kind):
+    """``idx`` itself, or a copy with every impact 1.0 (docs matching the
+    same terms tie), or with doc d renumbered d * 2**16 + a random offset
+    below 2**16 (ascending as before, ids spread over 31 bits, so every
+    radix digit of the grouping is in use)."""
+    if kind == "plain":
+        return idx
+    if kind == "tied":
+        return dataclasses.replace(
+            idx, impact=np.ones_like(idx.impact), impact_order=None,
+            _pruned_cache=None, _bitmap_cache=None,
+        )
+    off = np.random.default_rng(61).integers(0, 1 << 16, size=idx.n_docs)
+    wide = (idx.doc_ids.astype(np.int64) << 16) + off[idx.doc_ids]
+    return dataclasses.replace(
+        idx, doc_ids=wide.astype(np.int32), n_docs=idx.n_docs << 16,
+        impact_order=None, _pruned_cache=None, _bitmap_cache=None,
+    )
+
+
+def _grouped_counts(idx, term_ids, max_m, budget):
+    """(queries, hits) that the planner groups by doc, counted here: a query
+    of >= 2 distinct terms, one of them longer than ``max_m``, whose
+    pairwise intersections give more than 2 * ``budget`` hits (one a side)."""
+    n_vocab = idx.term_offsets.shape[0] - 1
+    queries = hits = 0
+    for q in term_ids:
+        terms = list(dict.fromkeys(int(t) for t in q if 0 < t < n_vocab))
+        lists = [idx.doc_ids[idx.term_offsets[t] : idx.term_offsets[t + 1]] for t in terms]
+        if len(lists) < 2 or max(len(x) for x in lists) <= max_m:
+            continue
+        n = sum(
+            2 * np.intersect1d(lists[i], lists[j], assume_unique=True).size
+            for i in range(len(lists))
+            for j in range(i + 1, len(lists))
+        )
+        if n > 2 * budget:
+            queries += 1
+            hits += n
+    return queries, hits
+
+
+@pytest.mark.parametrize("case", list(GROUPING_CASES))
+def test_port_grouping_plans_match_reference(lib, port_lib, idx, case, monkeypatch):
+    """The port's planner, whose multi-term selection groups the pairwise
+    hits by (doc, key) with one radix sort, gives the reference planner's
+    plans element for element: many-term queries (the reference's k-way
+    scan and its sort beyond 64 runs), a budget most queries outgrow, ties
+    at the budget's edge, filtered plans and doc ids over 31 bits. The
+    ``planner`` span's ``multi_queries`` and ``multi_hits`` equal the
+    counts made here from the same queries."""
+    n_terms, max_m, budget, kind, keep = GROUPING_CASES[case]
+    jidx = _variant(idx, kind)
+    port_idx = convert.postings_index(jidx)
+    rng = np.random.default_rng(sorted(GROUPING_CASES).index(case) + 60)
+    term_ids = [list(rng.integers(1, 120, size=n_terms)) for _ in range(64)]
+    mask = None if keep is None else rng.random(jidx.n_docs) < keep
+    rec = profiling.Recorder()
+    monkeypatch.setattr(profiling, "_RECORDER", rec)
+    got = tnative.native_build_query_plan(
+        port_idx, term_ids, max_m, budget, n_threads=3, doc_mask=mask
+    )
+    want = native.native_build_query_plan(jidx, term_ids, max_m, budget, doc_mask=mask)
+    assert got is not None and want is not None
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+    (planner,) = [r for r in rec.records() if r.name == "planner"]
+    queries, hits = _grouped_counts(jidx, term_ids, max_m, budget)
+    assert (planner.attrs["multi_queries"], planner.attrs["multi_hits"]) == (queries, hits)
+    assert queries > len(term_ids) // 2

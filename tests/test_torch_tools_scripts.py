@@ -94,18 +94,28 @@ def test_profile_planner_core_and_command(monkeypatch, tmp_path, capsys):
     assert all(p["ms_per_query"] >= 0 for p in res["phases"].values())
     assert res["phases"]["pairwise-intersections"]["ms_per_query"] > 0
     assert res["ms_per_query"] > 0 and res["width_max"] > 0 and res["prune_m"] == 128
+    assert 0 <= res["multi_queries"] <= 128 and res["multi_hits"] >= 2 * 256 * res["multi_queries"]
+    wide = profile_planner.bench_term_ids(128, 3_000, (3, 9))
+    assert wide.shape == (128, 9) and wide.dtype == np.int32
+    n_terms = (wide > 0).sum(axis=1)
+    assert n_terms.min() == 3 and n_terms.max() == 9 and (wide[:, :3] >= 51).all()
+    assert profile_planner.parse_terms("4") == (4, 4) and profile_planner.parse_terms("3-9") == (3, 9)
+    with pytest.raises(ValueError):
+        profile_planner.parse_terms("9-3")
     assert set(res["ab_ms_per_query"]) == {"bitmaps", "off"}
     assert profile_planner.report_lines(res)[0].startswith("A/B interleaved")
 
     for var, val in (("PROF_DOCS", "20000"), ("PROF_QUERIES", "64"), ("PROF_VOCAB", "3000"),
-                     ("PROF_REPEATS", "1")):
+                     ("PROF_REPEATS", "1"), ("PROF_TERMS", "3-9")):
         monkeypatch.setenv(var, val)
     out = tmp_path / "pp.json"
     assert profile_planner.main(["--device", "cpu", "--out", str(out)]) == 0
     doc = json.loads(out.read_text())
     assert doc["backend"] == "cpu" and doc["card"] is None and doc["queries"] == 64
+    assert doc["terms"] == [3, 9] and doc["multi_queries"] <= 64
     lines = capsys.readouterr().out.splitlines()
     assert any(line.startswith("plan assembly:") for line in lines)
+    assert any(line.startswith("  grouped by doc:") for line in lines)
     assert sum("% of instrumented" in line for line in lines) == 5
 
 

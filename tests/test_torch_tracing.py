@@ -179,8 +179,9 @@ def test_the_planner_span_carries_its_phases_and_the_plans_stay_as_they_were(fre
     assert len(planners) == 1
     attrs = planners[0].attrs
     assert planners[0].n == 64 and attrs["threads"] == 3
-    assert set(attrs) == {"threads", *native.PHASES}
+    assert set(attrs) == {"threads", *native.PHASES, *native.COUNTS}
     assert all(attrs[p] >= 0 for p in native.PHASES) and attrs["intersect"] > 0
+    assert 0 <= attrs["multi_queries"] <= 64 and attrs["multi_hits"] > 2 * 32 * attrs["multi_queries"]
     names = {r.name for r in fresh.records()}
     assert {"setup.impact_order", "setup.pruned_cache", "setup.bitmap_cache"} <= names
 
